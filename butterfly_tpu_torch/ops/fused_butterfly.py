@@ -110,16 +110,6 @@ def _r_tile_for(wdtype, R: int, dims, blk_in, leaf_dims) -> int | None:
     return None
 
 
-def bind_k1(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a library built from `csrc/k1_pass.cu`."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.k1_pass.argtypes = [P, P, P, P, P, P] + [I] * 12 + [P]
-    lib.k1_pass.restype = I
-    lib.k1_error_string.argtypes = [I]
-    lib.k1_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 class _K1Kernel:
     """ctypes binding of `csrc/k1_pass.cu`. `launches` counts the kernel
     launches made through this wrapper; nothing else changes it."""
@@ -131,7 +121,13 @@ class _K1Kernel:
     def load(self) -> ctypes.CDLL:
         """Build (at first use) and load the kernel library."""
         if self._lib is None:
-            self._lib = bind_k1(load_kernel("k1_pass.cu"))
+            lib = load_kernel("k1_pass.cu")
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.k1_pass.argtypes = [P, P, P, P, P, P] + [I] * 12 + [P]
+            lib.k1_pass.restype = I
+            lib.k1_error_string.argtypes = [I]
+            lib.k1_error_string.restype = ctypes.c_char_p
+            self._lib = lib
         return self._lib
 
     def __call__(self, pm: _PassMeta, R: int, x: torch.Tensor, leafp,

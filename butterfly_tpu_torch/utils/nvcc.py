@@ -19,8 +19,7 @@ from pathlib import Path
 
 from butterfly_tpu_torch.utils.errors import RuntimeButterflyError
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_kernel",
-           "load_kernel", "nvcc_path"]
+__all__ = ["BUILD_DIR", "build_kernel", "load_kernel"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

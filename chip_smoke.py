@@ -15,8 +15,11 @@ each printing its numbers on lines of their own:
   4. flagship: a random butterfly at full width (NB=1024 blocks of 128 rows,
      10 levels) applied in bf16 at r=2048 and in IEEE f32 at r=256;
   5. real factorization: a 4096 x 1024 DCT matrix streamed through the
-     factorizer, distilled to FFT form and applied through K1, held to a
-     relative error of 1e-6 against the dense product.
+     factorizer, distilled to FFT form and applied through K1 at r=1024;
+     that apply's output is held to a relative error of 1e-6 against the
+     dense product in float64, and K1's passes to 1e-5 against the plain
+     passes. Timed both as K1's passes alone and as the entry point's whole
+     apply (passes plus the gather into canonical row order).
 
 The main path (phases 4 and 5, one apply each) runs with K1's launch count
 set to 0 just before and read just after. Times are medians of CUDA-event
@@ -284,30 +287,37 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. real factorization numbers ----------------------------------
+    # The counted run's own output, at the timed shape, against the dense
+    # product in float64; its kernel passes against the plain passes.
     require(yD.shape == (nD, rD) and bool(torch.isfinite(yD).all()),
             "real fac output")
-    xs = rng.standard_normal((mD, 4)).astype(np.float32)
-    got = fp.apply(torch.as_tensor(xs, device=dev)).double().cpu().numpy()
-    want = Phi @ xs.astype(np.float64)
-    rel_D = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    rel_D = rel_err(yD, torch.as_tensor(Phi, device=dev) @ xD.double())
     require(rel_D <= 1e-6, f"real fac rel err {rel_D:.3e} > 1e-6")
+    yDb = fp.apply_butterfly_order(xD)
+    plainDb = fp.plan.apply_plain(xD)
+    err_D = rel_err(yDb, plainDb)
+    require(err_D <= TOL[torch.float32],
+            f"real fac: kernel vs plain {err_D:.3e}")
     flops_D = fp.flops_per_col() * rD
+    # K1's passes alone (butterfly row order), and the entry point's whole
+    # apply: the passes plus the gather into canonical row order
     ms_D = 1e3 * device_time(lambda: fp.apply_butterfly_order(xD),
                              warmup=2, iters=20)
+    apply_D = 1e3 * device_time(lambda: fp.apply(xD), warmup=2, iters=20)
     plain_D = 1e3 * device_time(lambda: fp.plan.apply_plain(xD), warmup=1,
                                 iters=20)
     lib_D = 1e3 * device_time(lambda: fp.dist.bf.apply(xD), warmup=1,
                               iters=20)
-    yDb = fp.apply_butterfly_order(xD)
     bD_ms, bD_by = bound_ms(flops_D, fp.dist.bf.nbytes() + nbytes_of(xD)
                             + nbytes_of(yDb), PEAK_F32)
     real = dict(
         shape=f"n={nD} m={mD} NB={fp.plan.NB} rank={fp.rank} r={rD} float32",
         passes=[(p.k, p.r_tile) for p in fp.plan.passes], setup_s=setup_D,
         rel_err_vs_dense=rel_D, ms=ms_D, tflops=flops_D / ms_D / 1e9,
-        plain_ms=plain_D, library_ms=lib_D, bound_ms=bD_ms, bound_by=bD_by,
-        rel_err_vs_plain=rel_err(yDb, fp.plan.apply_plain(xD)),
-        launches=launches_real)
+        apply_ms=apply_D, plain_ms=plain_D, library_ms=lib_D,
+        bound_ms=bD_ms, bound_by=bD_by,
+        max_abs_err=float((yDb.double() - plainDb.double()).abs().max()),
+        rel_err_vs_plain=err_D, launches=launches_real)
     print("[5 real fac] " + json.dumps(real), flush=True)
 
     # ---- the record -----------------------------------------------------

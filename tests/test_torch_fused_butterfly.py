@@ -170,11 +170,29 @@ def test_pass_weight_relayout_matches_unfused_levels():
     assert _rel(cur.numpy(), tb.apply(x).numpy()) <= 1e-6
 
 
-def test_k1_ablation_variants_match_kernel_source():
-    """Every variant of the on-card ablation tool still finds the lines of
-    `csrc/k1_pass.cu` it rewrites (the tool itself needs a card)."""
-    from butterfly_tpu_torch.tools.k1_ablate import VARIANTS, variant_source
+@pytest.mark.parametrize(
+    "wdtype,ranks,k_in,NB,want",
+    [("float32", [128] * 4, 128, 8, [(1, 64)] * 3),    # flagship blocks
+     ("bfloat16", [128] * 4, 128, 8, [(1, 128)] * 3),
+     # real-fac ranks: leaf (64, 32), levels of rank 64, last level m=128
+     ("float32", [64] * 5 + [128], 32, 32, [(2, 64), (2, 64), (1, 64)])],
+    ids=["f32-blk128", "bf16-blk128", "f32-real-fac-ranks"])
+def test_pass_split_follows_shared_memory(wdtype, ranks, k_in, NB, want):
+    """Passes are deepened while a CTA's tiles and weight ring fit in the
+    H100's 227 KB of shared memory at the engine's widest column tile."""
+    from butterfly_tpu_torch.ops.fused_butterfly import (
+        _SMEM_LIMIT_BYTES,
+        _maxrows,
+        _pass_smem_bytes,
+    )
 
-    base = variant_source("base")
-    for name in VARIANTS:
-        assert (variant_source(name) != base) == bool(VARIANTS[name][0])
+    num_levels = len(ranks) - 1
+    leaf, levels = _weights(NB, ranks, k_in, num_levels, True, 13)
+    _, tb = _both(leaf, levels)
+    wdt = getattr(torch, wdtype)
+    plan = FusedButterflyPlan(tb.astype(wdt), fuse=8, device="cpu")
+    assert [(p.k, p.r_tile) for p in plan.passes] == want
+    for pm in plan.passes:
+        rows = _maxrows(pm.dims, pm.blk_in, pm.leaf_dims)
+        assert _pass_smem_bytes(wdt, 2 ** pm.k, rows,
+                                pm.r_tile) <= _SMEM_LIMIT_BYTES

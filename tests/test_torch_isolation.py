@@ -23,7 +23,6 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.ops.fused_butterfly",
     "butterfly_tpu_torch.ops.linop",
     "butterfly_tpu_torch.ops.svd",
-    "butterfly_tpu_torch.tools.k1_ablate",
     "butterfly_tpu_torch.trees",
     "butterfly_tpu_torch.trees.tree",
     "butterfly_tpu_torch.utils",
