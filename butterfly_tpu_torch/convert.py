@@ -1,10 +1,13 @@
-"""Carry weights across from the JAX package's layout.
+"""Carry operators and weights across from the JAX package.
 
 The JAX package (`butterfly_tpu`) and the port store a butterfly in the
 same layout: a (NB, m0, k0) leaf and (hi, R, R, lo, m, k) levels. These
 functions take those parameters as numpy arrays — e.g. `np.asarray` of a
 JAX `UniformButterfly`'s factors — and build the port's objects, so that a
-test can hand both packages the same operator. Nothing here imports JAX.
+test can hand both packages the same operator. `linop_from_numpy` rebuilds
+a host `LinOp` tree (such as a multilevel Helmholtz factorization) and
+`cells_from_numpy` a list of cells. Nothing here imports JAX or the JAX
+package: the JAX objects are read by class name and fields.
 """
 
 from __future__ import annotations
@@ -15,10 +18,14 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.fac.distill import DistilledButterfly
+from butterfly_tpu_torch.ops import linop as L
 from butterfly_tpu_torch.ops.butterfly import UniformButterfly
+from butterfly_tpu_torch.ops.cellsp import Cell
 from butterfly_tpu_torch.utils.device import resolve_device
+from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
 
-__all__ = ["uniform_butterfly_from_numpy", "distilled_from_numpy"]
+__all__ = ["cells_from_numpy", "distilled_from_numpy", "linop_from_numpy",
+           "uniform_butterfly_from_numpy"]
 
 
 def _tensor(a, device, dtype):
@@ -63,3 +70,53 @@ def distilled_from_numpy(
         bf=bf, row_perm=np.asarray(row_perm), rank=int(rank),
         max_sv_discarded=float(max_sv_discarded), sigma_max=float(sigma_max),
     )
+
+
+def linop_from_numpy(op) -> L.LinOp:
+    """The port's `LinOp` tree for a JAX-package `LinOp` tree, holding the
+    same numpy arrays (nothing is copied).
+
+    Carries Dense, Diag, Identity, Zero, Perm, Scaled, Product, Sum, Diff,
+    BlockDiag, BlockCoo and BlockDense, recursively; any other class
+    raises InvalidArgumentsError."""
+    name = type(op).__name__
+    conv = linop_from_numpy
+    if name == "Dense":
+        return L.Dense(op.data)
+    if name == "Diag":
+        return L.Diag(op.diag, tuple(op.shape))
+    if name == "Identity":
+        return L.Identity(op.shape[0], op.dtype)
+    if name == "Zero":
+        return L.Zero(tuple(op.shape), op.dtype)
+    if name == "Perm":
+        return L.Perm(op.perm, op.dtype)
+    if name == "Scaled":
+        return L.Scaled(op.alpha, conv(op.op))
+    if name == "Product":
+        return L.Product([conv(f) for f in op.factors])
+    if name == "Sum":
+        return L.Sum([conv(t) for t in op.terms])
+    if name == "Diff":
+        return L.Diff(conv(op.a), conv(op.b))
+    if name == "BlockDiag":
+        return L.BlockDiag([conv(b) for b in op.blocks])
+    if name == "BlockCoo":
+        return L.BlockCoo(op.row_offsets, op.col_offsets, op.row_inds,
+                          op.col_inds, [conv(b) for b in op.blocks])
+    if name == "BlockDense":
+        return L.BlockDense([[conv(b) for b in row] for row in op.grid])
+    raise InvalidArgumentsError(f"cannot carry a {name} across")
+
+
+def cells_from_numpy(cells) -> list[Cell]:
+    """The port's `Cell`s for a list of JAX-package cells: the same dst,
+    src_buf and src_blk, and the same weight (a float32 tile, None for a
+    plain add, or a ("dev", stack, index) reference)."""
+    out = []
+    for c in cells:
+        w = c.w
+        if w is not None and not isinstance(w, tuple):
+            w = np.asarray(w, np.float32)
+        out.append(Cell(int(c.dst), int(c.src_buf), int(c.src_blk), w))
+    return out

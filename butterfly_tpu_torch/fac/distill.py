@@ -4,8 +4,9 @@ Port counterpart of the host half of `butterfly_tpu/fac/distill.py`
 (`distill_butterfly`, :216-259, and `_distill_from_cols`, :262-351). The
 construction is the same host float64 NumPy code; only the result is built
 as the port's `UniformButterfly`, with torch tensors on the chosen device.
-The batched host distillation and the device distillation wait for a later
-slice.
+`stacked_to_interleaved` (:95-113) converts between the two real
+embeddings of a complex operator on the tensor's device. The batched host
+distillation and the device distillation wait for a later slice.
 
 The streaming factorizer (fac/streamer.py) produces *ragged*
 factorizations, with data-dependent ranks per block (reference:
@@ -50,7 +51,7 @@ from butterfly_tpu_torch.ops.linop import LinOp
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 
-__all__ = ["DistilledButterfly", "distill_butterfly"]
+__all__ = ["DistilledButterfly", "distill_butterfly", "stacked_to_interleaved"]
 
 
 def _svd(T: np.ndarray):
@@ -94,6 +95,18 @@ def _svd_full_scaled(T: np.ndarray):
     """Same contract as _svd_scaled but always via the full SVD."""
     U, s, Vt = _svd(T)
     return U * s, s, Vt
+
+
+def stacked_to_interleaved(M: torch.Tensor) -> torch.Tensor:
+    """Re-index a STACKED real embedding ([Re; Im] halves, the packed-plan
+    convention) into the INTERLEAVED one (row 2i = Re_i, row 2i+1 = Im_i)
+    on whatever device M lives on. Interleaving restores spatial coherence
+    of contiguous index ranges, which the partition's block windows need."""
+    n2, m2 = M.shape
+    n, m = n2 // 2, m2 // 2
+    rp = torch.stack([torch.arange(n), n + torch.arange(n)], 1).reshape(-1)
+    cp = torch.stack([torch.arange(m), m + torch.arange(m)], 1).reshape(-1)
+    return M.index_select(0, rp.to(M.device)).index_select(1, cp.to(M.device))
 
 
 def _revbits(x: int, nbits: int) -> int:

@@ -6,9 +6,9 @@ Port counterpart of `FusedFacPlan` and `uniformize_fused` in
 re-compressed to uniform FFT form on the host (fac/distill.py) and applied
 through the fused pass kernel (ops/fused_butterfly.py): the fast path for
 the reference's product apply (src/fac.c:133-146), which walks the factor
-graph one small BLAS call per block. The ragged packed-plan path
-(`uniformize`, `StagePlan`) and `materialize_on_device` wait for the next
-slice.
+graph one small BLAS call per block. `materialize_on_device` (:52-79)
+densifies a packed `StagePlan` on its device for the partition apply; the
+ragged packed-plan path `uniformize` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -20,11 +20,28 @@ from butterfly_tpu_torch.fac.distill import DistilledButterfly, distill_butterfl
 from butterfly_tpu_torch.fac.streamer import PartialFac
 from butterfly_tpu_torch.ops.fused_butterfly import FusedButterflyPlan
 from butterfly_tpu_torch.ops.linop import LinOp
+from butterfly_tpu_torch.ops.packed import StagePlan
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 from butterfly_tpu_torch.utils.logging import log_info
 
-__all__ = ["FusedFacPlan", "uniformize_fused"]
+__all__ = ["FusedFacPlan", "materialize_on_device", "uniformize_fused"]
+
+
+def materialize_on_device(plan: StagePlan, chunk: int = 256) -> torch.Tensor:
+    """Dense materialization of a packed plan on its own device: apply it
+    to identity column blocks built there and keep the result there. For a
+    real-embedded complex plan the result is the (2n, 2m) STACKED [Re; Im]
+    real matrix (StagePlan's convention)."""
+    m = plan.shape[1] * (2 if plan.real_embed else 1)
+    w = min(chunk, m)
+    rows = torch.arange(m, device=plan.device)[:, None]
+    cols = torch.arange(w, device=plan.device)[None, :]
+    outs = []
+    for j0 in range(0, m, w):
+        E = (rows == j0 + cols).to(torch.float32)
+        outs.append(plan._run(E))
+    return torch.cat(outs, dim=1)[:, :m]
 
 
 def _as_linop(obj) -> LinOp:

@@ -2,19 +2,23 @@
 
 Port counterpart of `butterfly_tpu/ops/linop.py`, copied so that the port
 imports nothing of the JAX package. It keeps only the operators the
-streaming factorizer, the distiller and `UniformButterfly.to_linop` use:
+streaming factorizer, the distiller, `UniformButterfly.to_linop`, the
+Helmholtz factorization and the packed planner use:
 
 - Dense           <- mat_dense_real.c / mat_dense_complex.c
 - Diag            <- mat_diag_real.c
 - Identity / Zero <- mat_identity.c / mat_zero.c
+- Perm            <- mat_perm.c
 - Product         <- mat_product.c
+- Sum / Diff      <- mat_sum.c / mat_diff.c
+- Scaled          <- bfMatScale
 - FuncOp          <- mat_func.c / mat_python.c (matrix-free callback operator)
 - BlockDiag       <- mat_block_diag.c
 - BlockCoo        <- mat_block_coo.c
 - BlockDense      <- mat_block_dense.c
 
-The rest of the reference algebra (Perm, Givens, Sum, Diff, Scaled, Coo,
-indexed blocks) waits for the slices that use it.
+The rest of the reference algebra (Givens, Coo, indexed blocks) waits for
+the slices that use it.
 
 This layer runs on the host in float64/complex128 and is used for
 (a) factorization-time math (truncated SVDs, least squares, merges) and
@@ -40,7 +44,11 @@ __all__ = [
     "Diag",
     "Identity",
     "Zero",
+    "Perm",
     "Product",
+    "Sum",
+    "Diff",
+    "Scaled",
     "FuncOp",
     "BlockDiag",
     "BlockCoo",
@@ -306,6 +314,49 @@ class Zero(LinOp):
 
     adjoint = transpose
 
+
+class Perm(LinOp):
+    """Permutation operator (reference: mat_perm.c, perm.c).
+
+    `Perm(p).matvec(x)[i] == x[p[i]]` — i.e. row i of the permutation matrix
+    has its 1 in column p[i]. The inverse permutation gives the adjoint
+    (reference: bfPermGetReversePerm).
+    """
+
+    def __init__(self, perm: np.ndarray, dtype=np.float64):
+        perm = np.asarray(perm)
+        check(perm.ndim == 1, "Perm expects a 1-D index array", InvalidArgumentsError)
+        self.perm = perm
+        self._shape = (perm.size, perm.size)
+        self._dtype = np.dtype(dtype)
+
+    def _matmat(self, X):
+        return X[self.perm]
+
+    def _rmatmat(self, X):
+        Y = np.empty_like(X)
+        Y[self.perm] = X
+        return Y
+
+    def inverse(self) -> "Perm":
+        inv = np.empty_like(self.perm)
+        inv[self.perm] = np.arange(self.perm.size)
+        return Perm(inv, self.dtype)
+
+    def materialize(self):
+        A = np.zeros(self.shape, dtype=self.dtype)
+        A[np.arange(self.perm.size), self.perm] = 1
+        return A
+
+    def nbytes(self):
+        return self.perm.nbytes
+
+    def transpose(self):
+        return self.inverse()
+
+    adjoint = transpose
+
+
 class Product(LinOp):
     """Lazy operator product; factors applied right-to-left
     (reference: mat_product.c; apply loop src/fac.c:133-146).
@@ -347,6 +398,104 @@ class Product(LinOp):
 
     def children(self):
         return tuple(self.factors)
+
+
+class Sum(LinOp):
+    """Lazy sum of conforming operators (reference: mat_sum.c)."""
+
+    def __init__(self, terms: Sequence[LinOp]):
+        terms = list(terms)
+        check(len(terms) > 0, "Sum needs at least one term")
+        shape = terms[0].shape
+        for t in terms[1:]:
+            if t.shape != shape:
+                raise IncompatibleShapeError("Sum terms must have equal shapes")
+        self.terms = terms
+        self._shape = shape
+        self._dtype = np.result_type(*[t.dtype for t in terms])
+
+    def _matmat(self, X):
+        Y = self.terms[0]._matmat(X)
+        for t in self.terms[1:]:
+            Y = Y + t._matmat(X)
+        return Y
+
+    def _rmatmat(self, X):
+        Y = self.terms[0]._rmatmat(X)
+        for t in self.terms[1:]:
+            Y = Y + t._rmatmat(X)
+        return Y
+
+    def nbytes(self):
+        return sum(t.nbytes() for t in self.terms)
+
+    def transpose(self):
+        return Sum([t.transpose() for t in self.terms])
+
+    def adjoint(self):
+        return Sum([t.adjoint() for t in self.terms])
+
+    def children(self):
+        return tuple(self.terms)
+
+
+class Diff(LinOp):
+    """Lazy difference A - B (reference: mat_diff.c). This is the Schur
+    complement node in the fast direct solver
+    (reference: examples/fast_direct_solver/fast_direct_solver.py:702)."""
+
+    def __init__(self, a: LinOp, b: LinOp):
+        if a.shape != b.shape:
+            raise IncompatibleShapeError("Diff operands must have equal shapes")
+        self.a, self.b = a, b
+        self._shape = a.shape
+        self._dtype = np.result_type(a.dtype, b.dtype)
+
+    def _matmat(self, X):
+        return self.a._matmat(X) - self.b._matmat(X)
+
+    def _rmatmat(self, X):
+        return self.a._rmatmat(X) - self.b._rmatmat(X)
+
+    def nbytes(self):
+        return self.a.nbytes() + self.b.nbytes()
+
+    def transpose(self):
+        return Diff(self.a.transpose(), self.b.transpose())
+
+    def adjoint(self):
+        return Diff(self.a.adjoint(), self.b.adjoint())
+
+    def children(self):
+        return (self.a, self.b)
+
+
+class Scaled(LinOp):
+    """alpha * A (reference: bfMatScale)."""
+
+    def __init__(self, alpha, op: LinOp):
+        self.alpha = alpha
+        self.op = op
+        self._shape = op.shape
+        self._dtype = np.result_type(type(alpha), op.dtype)
+
+    def _matmat(self, X):
+        return self.alpha * self.op._matmat(X)
+
+    def _rmatmat(self, X):
+        return np.conj(self.alpha) * self.op._rmatmat(X)
+
+    def nbytes(self):
+        return self.op.nbytes() + 16
+
+    def transpose(self):
+        return Scaled(self.alpha, self.op.transpose())
+
+    def adjoint(self):
+        return Scaled(np.conj(self.alpha), self.op.adjoint())
+
+    def children(self):
+        return (self.op,)
 
 
 class FuncOp(LinOp):

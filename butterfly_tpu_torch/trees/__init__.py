@@ -1,3 +1,10 @@
+from butterfly_tpu_torch.trees.point_tree import (
+    Octree,
+    PointTree,
+    PointTreeNode,
+    Quadtree,
+    nearest_neighbors,
+)
 from butterfly_tpu_torch.trees.tree import (
     Tree,
     TreeNode,
@@ -8,6 +15,11 @@ from butterfly_tpu_torch.trees.tree import (
 )
 
 __all__ = [
+    "Octree",
+    "PointTree",
+    "PointTreeNode",
+    "Quadtree",
+    "nearest_neighbors",
     "Tree",
     "TreeNode",
     "level_is_internal",

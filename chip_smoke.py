@@ -8,10 +8,15 @@ use) and this checkout; it imports neither JAX nor the JAX package. Phases,
 each printing its numbers on lines of their own:
 
   1. card: name, and the `nvidia-smi` name and power limit;
-  2. build: K1 (`csrc/k1_pass.cu`) built by nvcc, with the compiler's report;
+  2. build: K1 (`csrc/k1_pass.cu`) and K2 (`csrc/k2_cell.cu`) built by
+     nvcc, both at once, with the compiler's report;
   3. kernel vs plain: K1 against its plain PyTorch version on the card, on
      small shapes covering every dtype mode, no leaf, partial depth, varying
-     and odd ranks, wide blocks and a vector;
+     and odd ranks, wide blocks and a vector; K2 against `cells_plain` on
+     one and two buffers, plain-add cells, cells straddling two output
+     tiles (dst mod 128 = 8 and 120) or running past the output, merged
+     cells, device-made weight tiles, r in {1, 36, 1000}, and a weight
+     stack of more than 2^31 bytes;
   4. flagship: a random butterfly at full width (NB=1024 blocks of 128 rows,
      10 levels) applied in bf16 at r=2048 and in IEEE f32 at r=256;
   5. real factorization: a 4096 x 1024 DCT matrix streamed through the
@@ -19,13 +24,26 @@ each printing its numbers on lines of their own:
      that apply's output is held to a relative error of 1e-6 against the
      dense product in float64, and K1's passes to 1e-5 against the plain
      passes. Timed both as K1's passes alone and as the entry point's whole
-     apply (passes plus the gather into canonical row order).
+     apply (passes plus the gather into canonical row order);
+  6. helm2 partition (bench E of the JAX package's bench.py): the
+     single-layer Helmholtz operator on 4096 points of an ellipse at k=60,
+     factorized on the host (quadtree leaf 32, `make_multilevel`) and
+     compiled into the two-pass cell program on the card
+     (`partition_apply_plan`); one counted apply at r=1024 through K2, its
+     passes held to 1e-5 against `cells_plain`, and `apply_complex` held to
+     a relative error of 1e-6 against the operator's own action in float64
+     (beside it the plain passes' error, and that of the same float32 plan
+     evaluated in float64, which bounds what any float32 apply can reach).
+     Timed as the whole apply and as each K2 pass, beside the plain passes,
+     one batched `torch.bmm` + `index_add_` per pass (library) and the
+     materialized 8192 x 8192 float32 operator times x (dense).
 
-The main path (phases 4 and 5, one apply each) runs with K1's launch count
-set to 0 just before and read just after. Times are medians of CUDA-event
-timings after warm-up. The last lines are one JSON object describing the
-kernels, the `nvidia-smi` line, and the result object. Any failed check
-exits non-zero; nothing is caught and carried on.
+Each part of the main path (phases 4 and 5 through K1, phase 6 through K2)
+runs with the launch counts set to 0 just before and read just after.
+Times are medians of CUDA-event timings after warm-up. The last lines are
+one JSON object describing the kernels, the `nvidia-smi` line, and the
+result object. Any failed check exits non-zero; nothing is caught and
+carried on.
 """
 
 from __future__ import annotations
@@ -35,6 +53,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -73,14 +92,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from butterfly_tpu_torch.config import FacSpec
+    from butterfly_tpu_torch.fac import helm2 as fac_helm2
+    from butterfly_tpu_torch.fac.partition import partition_apply_plan
     from butterfly_tpu_torch.fac.streamer import FacStreamer
     from butterfly_tpu_torch.fac.uniformize import uniformize_fused
+    from butterfly_tpu_torch.geom import Ellipse
     from butterfly_tpu_torch.ops.butterfly import (
         UniformButterfly,
         random_butterfly,
     )
+    from butterfly_tpu_torch.ops.cellsp import (
+        GK,
+        GM,
+        K2,
+        Cell,
+        CellPlan,
+        cells_from_dense_block,
+    )
     from butterfly_tpu_torch.ops.fused_butterfly import K1, FusedButterflyPlan
-    from butterfly_tpu_torch.trees import uniform_tree
+    from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
+    from butterfly_tpu_torch.trees import Quadtree, uniform_tree
     from butterfly_tpu_torch.utils.nvcc import build_kernel
     from butterfly_tpu_torch.utils.timer import device_time
 
@@ -104,18 +135,24 @@ def main() -> int:
     print(f"[1 card] nvidia-smi name, power limit: {smi}", flush=True)
 
     # ---- 2. build -------------------------------------------------------
+    # one nvcc per source, started together
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        libs = list(ex.map(build_kernel, ("k1_pass.cu", "k2_cell.cu")))
     K1.load()
+    K2.load()
     build_s = time.perf_counter() - t0
-    lib = build_kernel("k1_pass.cu")
-    log = lib.with_name(lib.name + ".log")
-    print(f"[2 build] K1 built and loaded in {build_s:.2f} s", flush=True)
-    entry = ""
-    for ln in log.read_text().splitlines():  # ptxas -v: one report per kernel
-        if "Compiling entry function" in ln:
-            entry = ln.split("'")[1]
-        elif "spill" in ln or "Used" in ln:
-            print(f"[2 build] {entry}: {ln.split(':')[-1].strip()}")
+    print(f"[2 build] K1 and K2 built and loaded in {build_s:.2f} s",
+          flush=True)
+    for lib in libs:
+        entry = ""
+        for ln in lib.with_name(lib.name + ".log").read_text().splitlines():
+            # ptxas -v: one report per kernel
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif "spill" in ln or "Used" in ln:
+                print(f"[2 build] {lib.name} {entry}: "
+                      f"{ln.split(':')[-1].strip()}")
 
     # ---- 3. kernel vs plain, small shapes -------------------------------
     def randn(shape, dtype=torch.float32):
@@ -191,6 +228,62 @@ def main() -> int:
               f"{[(p.k, p.r_tile) for p in plan.passes]} rel err "
               f"{err:.3e} (tol {tol:g})", flush=True)
         require(err <= tol, f"{label}: rel err {err:.3e} > {tol:g}")
+
+    # K2 against cells_plain (IEEE float32 both: only the summation order
+    # differs, hence 1e-5)
+    def tile(scale=1.0):
+        return (rng.standard_normal((GM, GK)) * scale).astype(np.float32)
+
+    def k2_case(label, n_out, buf_rows, cells, r, dev_tiles=None):
+        plan = CellPlan(n_out, buf_rows, cells, dev_tiles=dev_tiles,
+                        device=dev)
+        bufs = [randn((b, r)) for b in buf_rows]
+        got = plan.apply(bufs)
+        want = plan.apply_plain(bufs)
+        torch.cuda.synchronize()
+        require(got.shape == (n_out, r) and bool(torch.isfinite(got).all()),
+                f"K2 {label}: output {tuple(got.shape)}")
+        err = rel_err(got, want)
+        print(f"[3 kernel vs plain] K2 {label}: {plan.num_cells} cells, "
+              f"{plan.W.shape[0]} weight tiles, r={r}: rel err {err:.3e} "
+              f"(tol 1e-05)", flush=True)
+        require(err <= 1e-5, f"K2 {label}: rel err {err:.3e} > 1e-05")
+        return plan
+
+    cells = []
+    for _ in range(6):
+        cells_from_dense_block(
+            rng.standard_normal((int(rng.integers(16, 180)),
+                                 int(rng.integers(16, 180)))) / 8,
+            int(rng.integers(0, 220)) * 2, int(rng.integers(0, 156)) * 2,
+            cells)
+    k2_case("one buffer, dense blocks at even offsets", 640, [512], cells,
+            36)
+    # two buffers; dst mod 128 in {0, 8, 120}; plain adds, one of them
+    # straddling, one reading past the end of its 300-row buffer; a cell
+    # whose rows run past n_out; two merged cells
+    mixed = [Cell(0, 0, 0, tile()), Cell(8, 0, 1, tile()),
+             Cell(120, 1, 0, tile()), Cell(264, 0, 2, tile()),
+             Cell(264, 0, 2, tile()), Cell(128, 1, 1, None),
+             Cell(376, 1, 2, None), Cell(400 - 64, 0, 3, tile())]
+    for r in (1, 36, 1000):
+        plan = k2_case("two buffers, plain adds, straddling and merged "
+                       "cells", 400, [512, 300], mixed, r)
+        require(plan.num_cells == len(mixed) - 1, "K2: cells not merged")
+    stack = randn((40, GM, GK)) / 8
+    k2_case("device-made tiles after host tiles", 512, [384, 256],
+            [Cell(0, 0, 0, tile()), Cell(120, 1, 1, ("dev", 0, 39)),
+             Cell(248, 0, 2, ("dev", 0, 0)), Cell(256, 0, 1, ("dev", 1, 2))],
+            100, dev_tiles=[stack, stack[:3] * 2])
+    # more than 32768 tiles: byte offsets past 2^31 must not wrap
+    big = torch.zeros((33000, GM, GK), device=dev)
+    far = list(range(32760, 33000, 7))
+    big[far] = randn((len(far), GM, GK)) / 8
+    k2_case("weight stack of 33000 tiles (2.16 GB)", 1024, [1024],
+            [Cell(int(rng.integers(0, 112)) * 8, 0,
+                  int(rng.integers(0, 8)), ("dev", 0, t)) for t in far],
+            64, dev_tiles=[big])
+    del big, stack
 
     # ---- 4 + 5. the main path, one apply each, counted ------------------
     NB, block = 1024, 128
@@ -319,6 +412,132 @@ def main() -> int:
         max_abs_err=float((yDb.double() - plainDb.double()).abs().max()),
         rel_err_vs_plain=err_D, launches=launches_real)
     print("[5 real fac] " + json.dumps(real), flush=True)
+    del fp, xD, yD, yDb, plainDb
+    torch.cuda.empty_cache()
+
+    # ---- 6. helm2 partition (bench E), one counted apply ----------------
+    nE, rE = 4096, 1024
+    ts = time.perf_counter()
+    XE, _, NrmE, _ = Ellipse(1.0, 0.7, (0.0, 0.0), 0.3).sample_linspaced(nE)
+    treeE = Quadtree(XE, leaf_size=32, normals=NrmE)
+    A = fac_helm2.make_multilevel(Helm2(k=60.0, layer_pot=LayerPot.SINGLE),
+                                  treeE, treeE)
+    fac_s = time.perf_counter() - ts
+    ts = time.perf_counter()
+    pp = partition_apply_plan(A, rank=None, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - ts
+    c1, c2 = pp.cells1, pp.cells2
+    require(c1 is not None, "bench E built no low-rank blocks")
+    xE = torch.randn((pp.n2, rE), generator=gen(12), device=dev)
+    K1.launches = 0
+    K2.launches = 0
+    yE = pp.apply(xE)
+    torch.cuda.synchronize()
+    launches_E = K2.launches
+    require(launches_E > 0 and K1.launches == 0,
+            f"the partition apply launched K2 {launches_E} and K1 "
+            f"{K1.launches} times")
+    require(yE.shape == (pp.n2, rE) and bool(torch.isfinite(yE).all()),
+            "partition output")
+    # the counted apply against the plain passes on the same input, and
+    # each K2 pass against its plain pass
+    err_E = rel_err(yE, pp.apply_plain(xE))
+    tK, tP = c1.apply([xE]), c1.apply_plain([xE])
+    yK, yP = c2.apply([xE, tK]), c2.apply_plain([xE, tK])
+    err_p1, err_p2 = rel_err(tK, tP), rel_err(yK, yP)
+    max_abs_E = max(float((tK.double() - tP.double()).abs().max()),
+                    float((yK.double() - yP.double()).abs().max()))
+    for what, err in (("apply", err_E), ("pass 1", err_p1),
+                      ("pass 2", err_p2)):
+        require(err <= 1e-5, f"partition {what}: K2 vs plain {err:.3e}")
+    # the reference's accuracy clause: bench.py's probe against the
+    # operator's own action in float64
+    zs = (np.random.default_rng(0).standard_normal((nE, 2))
+          + 1j * np.random.default_rng(1).standard_normal((nE, 2)))
+    want = A.matmat(zs)
+
+    def rel_vs_op(y):
+        y = y.double().cpu().numpy()
+        return float(np.linalg.norm(y[0::2] + 1j * y[1::2] - want)
+                     / np.linalg.norm(want))
+
+    rel_E = float(np.linalg.norm(pp.apply_complex(zs) - want)
+                  / np.linalg.norm(want))
+    require(rel_E <= 1e-6, f"partition rel err {rel_E:.3e} > 1e-6")
+    xz = np.empty((pp.n2, 2), np.float32)
+    xz[0::2], xz[1::2] = zs.real, zs.imag
+    xz = torch.from_numpy(xz).to(dev)
+
+    apply_ms = 1e3 * device_time(lambda: pp.apply(xE), warmup=3, iters=20)
+    p1_ms = 1e3 * device_time(lambda: c1.apply([xE]), warmup=3, iters=20)
+    p2_ms = 1e3 * device_time(lambda: c2.apply([xE, tK]), warmup=3,
+                              iters=20)
+    plain_ms = 1e3 * device_time(
+        lambda: (c1.apply_plain([xE]), c2.apply_plain([xE, tK])), warmup=1,
+        iters=20)
+    # library: per pass, one torch.bmm over the cells' gathered tiles and
+    # one index_add_ (the weight tiles are gathered once, beforehand)
+    arange = torch.arange(GM, device=dev)
+
+    def library_pass(c, bufs, Wg, rows):
+        r = bufs[0].shape[1]
+        tiles = torch.cat([torch.nn.functional.pad(
+            b, (0, 0, 0, n - b.shape[0])) for n, b in zip(c.buf_rows_pad,
+                                                          bufs)])
+        Y = torch.bmm(Wg, tiles.reshape(-1, GK, r).index_select(
+            0, c._plain["src0"]))
+        y = torch.zeros((c.n_out_pad, r), dtype=Y.dtype, device=dev)
+        return y.index_add_(0, rows, Y.reshape(-1, r))[:c.n_out]
+
+    lib_args = []
+    for c in (c1, c2):
+        require(c._plain["src1"].numel() == 0, "bench E has plain adds")
+        lib_args.append((c.W.index_select(0, c._plain["widx0"]),
+                         (c._plain["dst0"][:, None] + arange).reshape(-1)))
+    err_lib = rel_err(library_pass(c2, [xE, library_pass(c1, [xE],
+                                                         *lib_args[0])],
+                                   *lib_args[1]), yP)
+    library_ms = 1e3 * device_time(
+        lambda: library_pass(c2, [xE, library_pass(c1, [xE], *lib_args[0])],
+                             *lib_args[1]), warmup=1, iters=20)
+    # the accuracy budget: the same float32 plan evaluated in float64, and
+    # the plain passes, against the operator
+    a64 = [(W.double(), rows) for W, rows in lib_args]
+    x64 = xz.double()
+    rel_f64 = rel_vs_op(library_pass(
+        c2, [x64, library_pass(c1, [x64], *a64[0])], *a64[1]))
+    rel_plain = rel_vs_op(pp.apply_plain(xz))
+    del lib_args, a64
+    # dense: the operator materialized through the plan, 8192 x 8192 f32
+    eye = torch.eye(pp.n2, device=dev)
+    D = torch.cat([pp.apply(eye[:, j:j + rE].contiguous())
+                   for j in range(0, pp.n2, rE)], dim=1)
+    del eye
+    err_dense = rel_err(D @ xE, yE)
+    dense_ms = 1e3 * device_time(lambda: D @ xE, warmup=2, iters=20)
+    flops_E = (c1.flops_per_col() + c2.flops_per_col()) * rE
+    bytes_E = (c1.nbytes() + c2.nbytes() + nbytes_of(xE) + nbytes_of(tK)
+               + nbytes_of(yE))
+    bE_ms, bE_by = bound_ms(flops_E, bytes_E, PEAK_F32)
+    part = dict(
+        shape=f"n={nE} k=60 leaf=32 r={rE} float32 (n2={pp.n2})",
+        setup_fac_s=fac_s, setup_plan_s=plan_s,
+        cells=[c1.num_cells, c2.num_cells],
+        matmul_cells=[c1.num_matmul_cells, c2.num_matmul_cells],
+        weight_mb=[c1.nbytes() / 1e6, c2.nbytes() / 1e6],
+        t_rows=pp.t_rows, lr_classes=pp._lr_meta, oversized=len(pp._mega),
+        flops_per_col=pp.flops_per_col(), apply_ms=apply_ms,
+        k2_pass_ms=[p1_ms, p2_ms], ms=p1_ms + p2_ms,
+        tflops=pp.flops_per_col() * rE / apply_ms / 1e9,
+        bound_ms=bE_ms, bound_by=bE_by, bound_bytes=bytes_E,
+        plain_ms=plain_ms, library_ms=library_ms, dense_ms=dense_ms,
+        rel_err_vs_op=rel_E, rel_err_plain_vs_op=rel_plain,
+        rel_err_f64_eval_vs_op=rel_f64,
+        rel_err_vs_plain=[err_E, err_p1, err_p2],
+        rel_err_library_vs_plain=err_lib, rel_err_dense_vs_apply=err_dense,
+        max_abs_err=max_abs_E, launches=launches_E)
+    print("[6 helm2 partition] " + json.dumps(part), flush=True)
 
     # ---- the record -----------------------------------------------------
     head = results["flagship bf16"]
@@ -336,6 +555,21 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "shape": head["shape"],
         "cases": {"flagship f32": results["flagship f32"], "real fac": real},
+    }, {
+        "name": "k2_cell",
+        "route": "cuda",
+        "source": "butterfly_tpu_torch/csrc/k2_cell.cu",
+        "replaces": "butterfly_tpu/ops/cellsp.py:95",
+        "launches": launches_E,
+        "max_abs_err": part["max_abs_err"],
+        "ms": part["ms"],
+        "plain_ms": part["plain_ms"],
+        "bound_ms": part["bound_ms"],
+        "bound_by": part["bound_by"],
+        "library_ms": part["library_ms"],
+        "shape": "both cell passes of the helm2 partition apply, "
+                 + part["shape"],
+        "cases": {"helm2 partition": part},
     }]}
     print(json.dumps(kernels))
     print(smi)

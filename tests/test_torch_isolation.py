@@ -16,14 +16,26 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.convert",
     "butterfly_tpu_torch.fac",
     "butterfly_tpu_torch.fac.distill",
+    "butterfly_tpu_torch.fac.helm2",
+    "butterfly_tpu_torch.fac.partition",
     "butterfly_tpu_torch.fac.streamer",
     "butterfly_tpu_torch.fac.uniformize",
+    "butterfly_tpu_torch.geom",
+    "butterfly_tpu_torch.geom.bbox",
+    "butterfly_tpu_torch.geom.circle",
+    "butterfly_tpu_torch.geom.ellipse",
+    "butterfly_tpu_torch.geom.points",
     "butterfly_tpu_torch.ops",
     "butterfly_tpu_torch.ops.butterfly",
+    "butterfly_tpu_torch.ops.cellsp",
     "butterfly_tpu_torch.ops.fused_butterfly",
+    "butterfly_tpu_torch.ops.helm2",
     "butterfly_tpu_torch.ops.linop",
+    "butterfly_tpu_torch.ops.packed",
+    "butterfly_tpu_torch.ops.special",
     "butterfly_tpu_torch.ops.svd",
     "butterfly_tpu_torch.trees",
+    "butterfly_tpu_torch.trees.point_tree",
     "butterfly_tpu_torch.trees.tree",
     "butterfly_tpu_torch.utils",
     "butterfly_tpu_torch.utils.debug",
@@ -50,6 +62,10 @@ from butterfly_tpu_torch.ops.butterfly import random_butterfly
 from butterfly_tpu_torch.ops.fused_butterfly import FusedButterflyPlan
 from butterfly_tpu_torch.fac.uniformize import uniformize_fused
 from butterfly_tpu_torch.convert import uniform_butterfly_from_numpy
+from butterfly_tpu_torch.fac.partition import PartitionPlan
+from butterfly_tpu_torch.ops.cellsp import Cell, CellPlan
+from butterfly_tpu_torch.ops.linop import Dense
+from butterfly_tpu_torch.ops.packed import pack
 import numpy as np
 
 def raises(fn):
@@ -64,6 +80,9 @@ assert raises(lambda: random_butterfly(8, 4))
 assert raises(lambda: FusedButterflyPlan(bf))
 assert raises(lambda: uniformize_fused(np.eye(64)))
 assert raises(lambda: uniform_butterfly_from_numpy(None, [np.ones((1, 2, 2, 1, 1, 1))]))
+assert raises(lambda: CellPlan(128, [128], [Cell(0, 0, 0, None)]))
+assert raises(lambda: PartitionPlan(Dense(np.eye(256))))
+assert raises(lambda: pack(Dense(np.eye(4))))
 print("isolated")
 """
 
