@@ -21,7 +21,7 @@ randomized sketch Y = Z Omega (a `torch.Generator` seeded 7 in place of
 `jax.random.key(7)`), QR, then V solved by least squares
 V = (Q^T Q)^{-1} Q^T Z, so the float32 QR's orthogonality error cancels;
 the per-block residual is measured by an 8-column random probe and the
-rank escalated until it meets `lr_tol` or stops improving (the float32
+rank escalated until it meets `_LR_TOL` or stops improving (the float32
 floor). All of it runs in IEEE float32 (no TF32). Ranks may differ from the
 JAX package's, whose random stream differs; the applies agree.
 
@@ -75,6 +75,14 @@ __all__ = ["PartitionPlan", "partition_apply_plan"]
 _MATERIALIZE_CHUNK = 256
 # the JAX package's gather-buffer limit, kept where there is no card
 _HOST_GATHER_LIMIT_BYTES = 2 << 30
+# per-block factorization target: relative probe residual of a class
+_LR_TOL = 3e-7
+# first rank tried: members' largest unit rank (embedded) plus this margin
+_RANK_MARGIN = 32
+# device bytes of member windows factored in one batch
+_BATCH_BUDGET_BYTES = 1 << 30
+# host threads multiplying member chains out on the host-chain path
+_HOST_WORKERS = 2
 
 
 def _interleave_embed(Z: np.ndarray, dtype=np.float32) -> np.ndarray:
@@ -216,11 +224,8 @@ class PartitionPlan:
     `apply(x)` takes interleaved real (n2, r) float32 in tree order;
     `apply_complex(Z)` takes and returns complex numpy arrays."""
 
-    def __init__(self, op: LinOp, rank=None, rank_margin: int = 32,
+    def __init__(self, op: LinOp,
                  bf_tiles=(256, 512, 1024, 2048, 4096),
-                 lr_tol: float = 3e-7,
-                 batch_budget_bytes: int = 1 << 30,
-                 workers: int = 2,
                  dense_materialize_limit_bytes: int = 6 << 30,
                  device=None):
         device = resolve_device(device)
@@ -265,6 +270,7 @@ class PartitionPlan:
                  "oversized", len(dense_blks), len(lr_blks), len(mega_blks))
 
         self._flops = 0
+        self._useful_flops = 0
         self._nbytes = 0
         cells1: list[Cell] = []   # pass 1: x -> t  (V cells)
         cells2: list[Cell] = []   # pass 2: [x, t] -> y  (dense + U cells)
@@ -285,7 +291,7 @@ class PartitionPlan:
             groups = []
             for cls in sorted(set(keys)):
                 members = [b for b, k in zip(lr_blks, keys) if k == cls]
-                gmax = max(1, batch_budget_bytes // (cls * cls * 4))
+                gmax = max(1, _BATCH_BUDGET_BYTES // (cls * cls * 4))
                 for g0 in range(0, len(members), gmax):
                     groups.append((cls, members[g0:g0 + gmax]))
 
@@ -318,7 +324,7 @@ class PartitionPlan:
             cls_state: dict = {}  # cls -> (rho_star, rel_floor) memo so
             # later chunks of a class skip the escalation (the f32 floor is
             # a property of the class size, not the chunk)
-            with ThreadPoolExecutor(max_workers=workers) as pool:
+            with ThreadPoolExecutor(max_workers=_HOST_WORKERS) as pool:
                 for cls, members in groups:
                     npad = cls
                     if M is not None:
@@ -328,21 +334,17 @@ class PartitionPlan:
                             lambda b: embed_member(b, npad), members)))
                         Zd = torch.from_numpy(Mb).to(device)
 
-                    tol_eff = lr_tol
-                    if rank is not None:
-                        rho = int(rank)
-                    else:
-                        rmax = max(b.rmax for b in members)
-                        rho = min(mul * rmax + rank_margin, npad // 2)
-                        rho = max(16, (rho + 15) // 16 * 16)
-                        if cls in cls_state:
-                            rho = max(rho, cls_state[cls][0])
-                            tol_eff = max(lr_tol, 1.5 * cls_state[cls][1])
+                    tol_eff = _LR_TOL
+                    rmax = max(b.rmax for b in members)
+                    rho = min(mul * rmax + _RANK_MARGIN, npad // 2)
+                    rho = max(16, (rho + 15) // 16 * 16)
+                    if cls in cls_state:
+                        rho = max(rho, cls_state[cls][0])
+                        tol_eff = max(_LR_TOL, 1.5 * cls_state[cls][1])
                     prev = None
                     while True:
                         U, V, rel = _factor_batch(Zd, rho, seed=7)
-                        if (rank is not None or rel <= tol_eff
-                                or rho >= npad // 2):
+                        if rel <= tol_eff or rho >= npad // 2:
                             break
                         if prev is not None and rel > 0.5 * prev[2]:
                             # rank escalation stopped helping: the residual
@@ -359,9 +361,8 @@ class PartitionPlan:
                                  "%.0e; retrying at rho %d", cls, rho, rel,
                                  tol_eff, rho_new)
                         rho = rho_new
-                    if rank is None:
-                        st_ = cls_state.get(cls, (0, 0.0))
-                        cls_state[cls] = (max(st_[0], rho), max(st_[1], rel))
+                    st_ = cls_state.get(cls, (0, 0.0))
+                    cls_state[cls] = (max(st_[0], rho), max(st_[1], rel))
                     del Zd, prev
 
                     # U/V stay on the device, retiled into (ntiles, GM, GK)
@@ -410,6 +411,7 @@ class PartitionPlan:
             self.cells1 = CellPlan(self.t_rows, [buf0_rows], cells1,
                                    dev_tiles=dev_tiles1, device=device)
             self._flops += self.cells1.flops_per_col()
+            self._useful_flops += self.cells1.useful_flops_per_col()
             self._nbytes += self.cells1.nbytes()
         if not cells2:
             cells2.append(Cell(dst=0, src_buf=0, src_blk=0,
@@ -417,6 +419,7 @@ class PartitionPlan:
         self.cells2 = CellPlan(self.n2, [buf0_rows, self.t_rows], cells2,
                                dev_tiles=dev_tiles2, device=device)
         self._flops += self.cells2.flops_per_col()
+        self._useful_flops += self.cells2.useful_flops_per_col()
         self._nbytes += self.cells2.nbytes()
         log_info("partition: pass1 %d cells, pass2 %d cells (%d dense), "
                  "t rows %d, weights %.0f MB",
@@ -448,6 +451,7 @@ class PartitionPlan:
             self._mega.append((sp, torch.as_tensor(in_idx, device=device),
                                torch.as_tensor(out_idx, device=device)))
             self._flops += sp.stats.padded_flops_per_col
+            self._useful_flops += sp.stats.useful_flops_per_col
             self._nbytes += sp.stats.weight_bytes
 
     def _materialize_fits(self, op: LinOp, chains, mul: int,
@@ -519,11 +523,17 @@ class PartitionPlan:
         """Executed (padded) flops per RHS column of the device program."""
         return self._flops
 
+    def useful_flops_per_col(self) -> int:
+        """Flops per RHS column without the plan's zero padding (rank
+        padding to whole tiles, block edges inside tiles)."""
+        return self._useful_flops
+
     def nbytes(self) -> int:
         return self._nbytes
 
 
-def partition_apply_plan(op: LinOp, rank=None, **kw) -> PartitionPlan:
+def partition_apply_plan(op: LinOp, **kw) -> PartitionPlan:
     """Compile a multilevel partition operator (e.g. fac/helm2.py
-    make_multilevel output) into its batched device apply."""
-    return PartitionPlan(op, rank=rank, **kw)
+    make_multilevel output) into its batched device apply. Each low-rank
+    class's rank is chosen adaptively, as the JAX package's `rank=None`."""
+    return PartitionPlan(op, **kw)

@@ -295,6 +295,7 @@ class CellPlan:
         self.num_cells = T
         self.num_matmul_cells = int(k0.sum())
         self._flops = 2 * GM * GK * self.num_matmul_cells
+        self._useful_flops = _useful_flops(self.W, widx[k0])
         self._nbytes = self.W.numel() * 4
 
     def apply(self, bufs) -> torch.Tensor:
@@ -312,10 +313,31 @@ class CellPlan:
         return cells_plain(self, list(bufs))
 
     def flops_per_col(self) -> int:
+        """Executed flops per column: every matmul cell as a full
+        (GM, GK) product, zero padding included."""
         return self._flops
+
+    def useful_flops_per_col(self) -> int:
+        """Flops per column of the products without their zero padding:
+        2 * nonzero rows * nonzero columns of each matmul cell's tile."""
+        return self._useful_flops
 
     def nbytes(self) -> int:
         return self._nbytes
+
+
+def _useful_flops(W: torch.Tensor, widx: np.ndarray) -> int:
+    """2 * sum over the cells' tiles W[widx] of (rows holding a nonzero) *
+    (columns holding a nonzero), counted in chunks of the weight stack."""
+    rows = torch.empty(W.shape[0], dtype=torch.int64, device=W.device)
+    cols = torch.empty_like(rows)
+    step = 4096
+    for i in range(0, W.shape[0], step):
+        nz = W[i:i + step] != 0
+        rows[i:i + step] = nz.any(2).sum(1)
+        cols[i:i + step] = nz.any(1).sum(1)
+    per_tile = (rows * cols).cpu().numpy()
+    return int(2 * per_tile[widx].sum())
 
 
 def _entry_tables(n_out: int, dst, src_buf, src_blk, widx):

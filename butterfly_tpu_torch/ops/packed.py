@@ -3,8 +3,8 @@
 Port counterpart of `butterfly_tpu/ops/packed.py`. The planning is the
 JAX package's host NumPy code, copied: the flattening of a LinOp tree into
 chains of single-stage factors (`_single_stage`, `_expand_product`,
-`_flatten`), the group tiling and shape bucketing, and the per-stage
-exchange tables of `StagePlan.__init__`. Only the executor changes: the
+`_flatten`), the shape bucketing, and the per-stage exchange tables of
+`StagePlan.__init__`. Only the executor changes: the
 jitted `_apply_plan` becomes eager PyTorch on the plan's device
 (`index_select` for the exchange takes, one batched `torch.bmm` per bucket
 in IEEE float32, a take-sum where several units write one row). It is
@@ -13,9 +13,13 @@ Pallas kernel.
 
 Left out: `params_on_host`, `pin_params` and `unpin_params` (:690-720),
 which stream weights host-to-device for a 16 GB TPU v5e; the card holds
-them. `real_embed` defaults to False and never depends on the backend:
-callers that want the stacked 2x2 real embedding of a complex operator ask
-for it.
+them. Also the group tiling (`_plan_group_tiling` and its cost model of the
+TPU's matrix unit), which split ragged blocks onto one or two tile shapes
+per stage to save the TPU's per-bucket dispatch cost: here every GEMM unit
+keeps its own padded shape, one bucket per shape.
+
+`real_embed` defaults to False and never depends on the backend: callers
+that want the stacked 2x2 real embedding of a complex operator ask for it.
 
 This is the replacement for the reference's interpreted apply path, where
 every matvec walks a recursive object graph making one tiny BLAS call per
@@ -239,100 +243,6 @@ def _round_up(x: int, align: int) -> int:
     return -(-x // align) * align
 
 
-# ---------------------------------------------------------------------------
-# Group tiling: collapse ragged (stage, buffer) groups to 1-2 GEMM buckets
-# ---------------------------------------------------------------------------
-#
-# Shape-bucketing alone leaves real factorizations dispatch-bound: the
-# multilevel Helmholtz plan measured 43 buckets over 5 stages and ran at 3%
-# of its own speed of light — each bucket is one einsum whose fixed issue
-# cost (~2-4 us on TPU) dwarfs its tiny MXU work. Tiling instead SPLITS every
-# dense block of a (stage, write-buffer) group onto one (or two) uniform tile
-# shapes: edge tiles are zero-padded, k-direction splits accumulate through
-# the executor's take-sum tables, m-direction splits just read their input
-# window twice. One bucket then equals one batched einsum per stage.
-
-# Fixed per-bucket issue cost, expressed in per-column flops at a nominal
-# r=256 column count: measured ~3 us/bucket dispatch on TPU v5e at the f32
-# peak (~170 TFLOP/s) => 3e-6 * 170e12 / 256 ~= 2e6 padded flops per column.
-# (Round 2's 4-MFLOP guess was calibrated at r=256 too but bench E ran r=64,
-# understating overhead 4x; the bench now measures r>=256.)
-_BUCKET_OVERHEAD_FLOPS = 1 << 21
-
-
-def _eff_dim(x: int, gran: int) -> int:
-    """Effective MXU-occupied size of a dim (Mosaic pads tiles to hardware
-    granularity: 8 sublanes x 128 lanes for f32)."""
-    return max(gran, _round_up(x, gran))
-
-
-def _tile_cost(dims: "list[tuple[int, int]]", tm: int, tk: int) -> int:
-    """Modeled per-column flops of one bucket holding `dims` split on a
-    (tm, tk) tile, with MXU granularity applied to the tile itself."""
-    tme, tke = _eff_dim(tm, 8), _eff_dim(tk, 128)
-    return sum(
-        2 * -(-m // tm) * tme * -(-k // tk) * tke for m, k in dims
-    )
-
-
-def _best_single_tile(dims, cand_m, cand_k):
-    best = None
-    for tm in cand_m:
-        for tk in cand_k:
-            c = _tile_cost(dims, tm, tk)
-            if best is None or c < best[0]:
-                best = (c, tm, tk)
-    return best
-
-
-def _plan_group_tiling(dims, block_align, overhead=_BUCKET_OVERHEAD_FLOPS):
-    """Choose tile buckets for one (stage, write-buffer) group.
-
-    Returns (cost, [(tm, tk, member_index_list), ...]) with 1 or 2 buckets,
-    whichever minimizes modeled flops + per-bucket overhead. Candidates are
-    the distinct padded dims present in the group, so a rank-homogeneous
-    group keeps its natural shape and pays zero extra padding.
-    """
-    pm = sorted({_round_up(m, block_align) for m, _ in dims})
-    pk = sorted({_round_up(k, block_align) for _, k in dims})
-    all_idx = list(range(len(dims)))
-    c1, tm1, tk1 = _best_single_tile(dims, pm, pk)
-    best = (c1 + overhead, [(tm1, tk1, all_idx)])
-    if len(pk) > 1 or len(pm) > 1:
-        # 2-bucket partitions: split on a k threshold or an m threshold
-        for axis in (0, 1):
-            vals = pm if axis == 0 else pk
-            for thr in vals[:-1]:
-                A = [i for i in all_idx
-                     if _round_up(dims[i][axis], block_align) <= thr]
-                B = [i for i in all_idx if i not in A]
-                if not A or not B:
-                    continue
-                dA = [dims[i] for i in A]
-                dB = [dims[i] for i in B]
-                cA, tmA, tkA = _best_single_tile(
-                    dA, sorted({_round_up(m, block_align) for m, _ in dA}),
-                    sorted({_round_up(k, block_align) for _, k in dA}))
-                cB, tmB, tkB = _best_single_tile(
-                    dB, sorted({_round_up(m, block_align) for m, _ in dB}),
-                    sorted({_round_up(k, block_align) for _, k in dB}))
-                cost = cA + cB + 2 * overhead
-                if cost < best[0]:
-                    best = (cost, [(tmA, tkA, A), (tmB, tkB, B)])
-    return best
-
-
-def _split_into_tiles(data: np.ndarray, jbase: int, ibase: int,
-                      tm: int, tk: int):
-    """Yield (tile_data, jbase_tile, ibase_tile) unit tiles covering `data`."""
-    m, k = data.shape
-    for i0 in range(0, m, tm):
-        mm = min(tm, m - i0)
-        for j0 in range(0, k, tk):
-            kk = min(tk, k - j0)
-            yield (data[i0:i0 + mm, j0:j0 + kk], jbase + j0, ibase + i0)
-
-
 @dataclasses.dataclass
 class _GemmBucket:
     """Every GEMM unit reads/writes a CONTIGUOUS row range of its buffer in
@@ -481,27 +391,15 @@ class StagePlan:
         self.buf_sizes = buf_sizes
         self.out_size = m
 
-        # Bucket the GEMM units: each (stage, write-buffer) group collapses
-        # onto 1-2 uniform tile shapes chosen by the cost model above —
-        # ragged blocks are SPLIT into tiles, so a real factorization applies
-        # as ~#stages batched products instead of one per distinct padded
-        # shape (43 for the r2 helm2 plan).
+        # Bucket the GEMM units: one bucket per (stage, write-buffer,
+        # padded shape), each unit padded to `block_align` in both dims.
         gemm_groups: dict[tuple, list] = {}
         scale_groups: dict[tuple, list] = {}
-        stage_units: dict[tuple, list] = {}
         for (t, write_buf, data, jbase, ibase) in raw_gemms:
-            stage_units.setdefault((t, write_buf), []).append(
-                (data, jbase, ibase)
-            )
-        for (t, write_buf), units in stage_units.items():
-            dims = [u[0].shape for u in units]
-            _, buckets = _plan_group_tiling(dims, block_align)
-            for tm, tk, members in buckets:
-                key = (t, write_buf, tm, tk)
-                for i in members:
-                    data, jbase, ibase = units[i]
-                    for tile in _split_into_tiles(data, jbase, ibase, tm, tk):
-                        gemm_groups.setdefault(key, []).append(tile)
+            mm, kk = data.shape
+            key = (t, write_buf, _round_up(mm, block_align),
+                   _round_up(kk, block_align))
+            gemm_groups.setdefault(key, []).append((data, jbase, ibase))
         for (t, write_buf, w, iix, oix) in raw_scales:
             scale_groups.setdefault((t, write_buf), []).append((w, iix, oix))
 

@@ -36,7 +36,9 @@ each printing its numbers on lines of their own:
      evaluated in float64, which bounds what any float32 apply can reach).
      Timed as the whole apply and as each K2 pass, beside the plain passes,
      one batched `torch.bmm` + `index_add_` per pass (library) and the
-     materialized 8192 x 8192 float32 operator times x (dense).
+     materialized 8192 x 8192 float32 operator times x (dense). K2's bound
+     counts the useful flops (the tiles' zero padding left out); the bound
+     of the padded work it executes is printed beside it.
 
 Each part of the main path (phases 4 and 5 through K1, phase 6 through K2)
 runs with the launch counts set to 0 just before and read just after.
@@ -424,7 +426,7 @@ def main() -> int:
                                   treeE, treeE)
     fac_s = time.perf_counter() - ts
     ts = time.perf_counter()
-    pp = partition_apply_plan(A, rank=None, device=dev)
+    pp = partition_apply_plan(A, device=dev)
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - ts
     c1, c2 = pp.cells1, pp.cells2
@@ -516,10 +518,15 @@ def main() -> int:
     del eye
     err_dense = rel_err(D @ xE, yE)
     dense_ms = 1e3 * device_time(lambda: D @ xE, warmup=2, iters=20)
-    flops_E = (c1.flops_per_col() + c2.flops_per_col()) * rE
+    # the bound counts the useful flops (zero padding of the tiles left
+    # out); the padded count, every matmul cell as a full 128x128 product,
+    # gives the bound of the work K2 executes
+    flops_E = (c1.useful_flops_per_col() + c2.useful_flops_per_col()) * rE
+    flops_pad_E = (c1.flops_per_col() + c2.flops_per_col()) * rE
     bytes_E = (c1.nbytes() + c2.nbytes() + nbytes_of(xE) + nbytes_of(tK)
                + nbytes_of(yE))
     bE_ms, bE_by = bound_ms(flops_E, bytes_E, PEAK_F32)
+    bE_pad_ms, bE_pad_by = bound_ms(flops_pad_E, bytes_E, PEAK_F32)
     part = dict(
         shape=f"n={nE} k=60 leaf=32 r={rE} float32 (n2={pp.n2})",
         setup_fac_s=fac_s, setup_plan_s=plan_s,
@@ -527,10 +534,16 @@ def main() -> int:
         matmul_cells=[c1.num_matmul_cells, c2.num_matmul_cells],
         weight_mb=[c1.nbytes() / 1e6, c2.nbytes() / 1e6],
         t_rows=pp.t_rows, lr_classes=pp._lr_meta, oversized=len(pp._mega),
-        flops_per_col=pp.flops_per_col(), apply_ms=apply_ms,
-        k2_pass_ms=[p1_ms, p2_ms], ms=p1_ms + p2_ms,
+        flops_per_col=pp.flops_per_col(),
+        useful_flops_per_col=pp.useful_flops_per_col(),
+        useful_flops_per_col_k2=[c1.useful_flops_per_col(),
+                                 c2.useful_flops_per_col()],
+        padded_flops_per_col_k2=[c1.flops_per_col(), c2.flops_per_col()],
+        apply_ms=apply_ms, k2_pass_ms=[p1_ms, p2_ms], ms=p1_ms + p2_ms,
         tflops=pp.flops_per_col() * rE / apply_ms / 1e9,
+        useful_tflops=pp.useful_flops_per_col() * rE / apply_ms / 1e9,
         bound_ms=bE_ms, bound_by=bE_by, bound_bytes=bytes_E,
+        bound_ms_padded=bE_pad_ms, bound_by_padded=bE_pad_by,
         plain_ms=plain_ms, library_ms=library_ms, dense_ms=dense_ms,
         rel_err_vs_op=rel_E, rel_err_plain_vs_op=rel_plain,
         rel_err_f64_eval_vs_op=rel_f64,

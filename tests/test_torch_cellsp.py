@@ -182,6 +182,25 @@ def test_straddling_and_ragged_cells_match_dense(r):
     assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
 
 
+def test_useful_flops_leave_out_padding():
+    """A block's edge tiles count their nonzero rows times nonzero columns;
+    the padded count takes every matmul cell as a full tile; plain adds
+    count neither."""
+    rng = np.random.default_rng(3)
+    cells = []
+    # 70 x 150 at row shift 2, column shift 74: tile (0, 0) holds 54
+    # columns, tile (0, 1) the other 96; device tile of 5 nonzero rows
+    cells_from_dense_block(rng.standard_normal((70, 150)), 34, 202, cells)
+    dev = np.zeros((1, GM, GK), np.float32)
+    dev[0, :5] = 1.0
+    cells += [Cell(256, 0, 0, ("dev", 0, 0)), Cell(384, 0, 1, None)]
+    plan = CellPlan(512, [512], cells, dev_tiles=[torch.from_numpy(dev)],
+                    device="cpu")
+    assert plan.num_matmul_cells == 3
+    assert plan.flops_per_col() == 2 * 3 * GM * GK
+    assert plan.useful_flops_per_col() == 2 * (70 * 54 + 70 * 96 + 5 * GK)
+
+
 def test_cell_plan_rejects_bad_cells_and_buffers():
     from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
 

@@ -88,4 +88,5 @@ def test_partition_low_rank_classes(separated_fac, limit):
                               dense_materialize_limit_bytes=limit)
     assert pp.cells1 is not None and not pp._mega
     assert [m["cls"] for m in pp._lr_meta] == [512, 1024]
+    assert 0 < pp.useful_flops_per_col() < pp.flops_per_col()
     assert _rel(pp.apply_complex(zs), want) < 2e-5
