@@ -11,13 +11,20 @@ shared memory, and writes the tile back, so activation traffic is
 2·ceil(L/k) sweeps instead of 2·L while every weight is read once.
 
 What differs from the TPU design. A TPU pass holds a group of R^k blocks in
-~100 MB of VMEM; a CTA on the H100 has 227 KB of shared memory. The fusion
-depth of each pass and its column tile are therefore chosen from
-`_pass_smem_bytes` (the kernel's own shared-memory size) in place of the
-TPU's `_pass_vmem_bytes`: a pass is deepened while its group fits with the
-widest column tile of its engine (64 for float weights, 128 for bf16), and
-a pass that does not fit at that width takes a narrower one. Ragged
-columns are masked in the kernel instead of padded.
+~100 MB of VMEM; a CTA on the H100 has 227 KB of shared memory. Each pass
+therefore gets, at plan time, one of K1's three engines (`_engine_for`), a
+fusion depth and a column tile, all visible in `plan.passes`:
+  * float weights run on the FFMA engine, deepened while two CTAs of the
+    deeper pass fit an SM's shared memory (`_pass_smem_bytes`, the
+    kernel's own size, in place of the TPU's `_pass_vmem_bytes`) at its
+    widest column tile, 64;
+  * bf16 levels the WGMMA engine takes (`_wgmma_takes`: bf16 activations,
+    radix 2, ranks 64 or 128) run one level per pass, 128 columns per
+    work item; the plan pads the columns to a multiple of 8 for it;
+  * every other bf16 pass runs on the MMA engine, deepened while one CTA
+    fits at its widest tile, 128.
+A pass that does not fit at the widest tile takes a narrower one. Ragged
+columns are masked in the kernel (zero-filled by TMA for WGMMA).
 
 Weight layout. At plan-build time each level's (hi, R, R, lo, m, k) tensor
 is re-laid out once, on its device, into the per-pass form
@@ -49,49 +56,31 @@ from butterfly_tpu_torch.utils.nvcc import load_kernel
 
 __all__ = ["FusedButterflyPlan", "K1", "pass_plain"]
 
-# Shared memory a CTA may use on the H100 (opt-in maximum per block).
+# Shared memory a CTA may use on the H100 (opt-in maximum per block), and
+# an SM's, of which each resident CTA also takes 1 KB.
 _SMEM_LIMIT_BYTES = 232448
-# Column tiles each engine of the kernel is built for, widest first: FFMA
-# (float weights) and MMA (bf16 weights).
-_R_TILES = {torch.float32: (64, 16), torch.bfloat16: (128, 64, 32)}
-# Staged weights of each engine, in elements: rings of kFStages chunks of
-# kFKC x kFWStride (FFMA) and of kMStages chunks of 256 x kMWStride (MMA).
-_W_STAGE = {torch.float32: 2 * 32 * 260, torch.bfloat16: 3 * 256 * 40}
+_SMEM_PER_SM_BYTES = 233472
+# CTAs per SM an FFMA pass keeps when it is deepened (16 warps: two warps
+# per scheduler hide the shared-memory latency of the FMA loop).
+_FFMA_MIN_CTAS = 2
+# K1's engines (`Engine` in the .cu, same order): FFMA for float weights,
+# WGMMA for the bf16 passes it takes (`_wgmma_takes`), MMA for the other
+# bf16 passes.
+_ENGINES = ("ffma", "mma", "wgmma")
+# Column tiles each engine is built for, widest first.
+_R_TILES = {"ffma": (64,), "mma": (128, 64, 32), "wgmma": (128,)}
+# Rings, as the .cu sizes them: FFMA kFStages x (kFKC x kFWStride weights
+# + kFKC x 64 inputs) floats; MMA kMStages x 256 x kMWStride bf16; a WGMMA
+# stage is 256 weight rows and 64 x 128 inputs, bf16, in 128-byte rows.
+_FFMA_RING = 3 * (16 * 260 + 16 * 64)
+_MMA_RING = 3 * 256 * 40
+_WGMMA_STAGE = 256 * 128 + 2 * 64 * 128
 _MAX_FUSE = 16  # kMaxLevels of the kernel
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def _pass_smem_bytes(wdtype, Rk: int, maxrows: int, r_tile: int) -> int:
-    """Shared memory of one K1 CTA (mirrors `smem_bytes` in the .cu):
-    two buffers of Rk activation tiles and the weight ring. Float weights
-    keep float tiles of maxrows x r_tile; bf16 weights keep bf16 tiles of
-    maxrows rounded up to 16 rows, each padded to r_tile + 8 elements."""
-    if wdtype == torch.bfloat16:
-        tiles = 2 * Rk * _round_up(maxrows, 16) * (r_tile + 8)
-        return 2 * (tiles + _W_STAGE[wdtype])
-    return 4 * (2 * Rk * maxrows * r_tile + _W_STAGE[wdtype])
-
-
-@dataclasses.dataclass(frozen=True)
-class _PassMeta:
-    """Static topology of one fused pass."""
-
-    k: int           # number of levels fused in this pass
-    hiG: int         # NB / R^(l0+k)
-    loG: int         # R^l0
-    dims: tuple      # ((m, k) per level in this pass)
-    blk_in: int      # rows per block entering the pass
-    blk_out: int     # rows per block leaving the pass
-    leaf_dims: tuple | None  # (m0, k0) when pass 0 also applies the leaf
-    r_tile: int      # columns per CTA
-
-    @property
-    def has_leaf(self) -> bool:
-        return self.leaf_dims is not None
 
 
 def _maxrows(dims, blk_in, leaf_dims) -> int:
@@ -101,11 +90,75 @@ def _maxrows(dims, blk_in, leaf_dims) -> int:
     return max(rows)
 
 
-def _r_tile_for(wdtype, R: int, dims, blk_in, leaf_dims) -> int | None:
+def _pass_smem_bytes(engine: str, R: int, dims, blk_in, leaf_dims,
+                     r_tile: int) -> int:
+    """Shared memory of one K1 CTA; mirrors `ffma_smem_bytes`,
+    `mma_smem_bytes` and `wgmma_smem_bytes` in the .cu.
+
+    FFMA: the ring, and one buffer of R^k float tiles (rows x r_tile) per
+    intermediate, at most two (the leaf's output and every level's but the
+    last; none at depth 1 without a leaf). MMA: two buffers of R^k bf16
+    tiles of the widest rows rounded up to 16, each row padded to r_tile +
+    8, and the ring. WGMMA: 1 KB of alignment slack, 3 stages, the output
+    staging region (2·m rows of 128 bf16 columns, or 2·m0 rows when the
+    leaf's output is taller) and two 8-byte barriers per stage."""
+    Rk = R ** len(dims)
+    if engine == "wgmma":
+        rows = max(dims[0][0], leaf_dims[0] if leaf_dims else 0)
+        return 1024 + 3 * _WGMMA_STAGE + 4 * rows * 128 + 16 * 3
+    if engine == "mma":
+        rows = _round_up(_maxrows(dims, blk_in, leaf_dims), 16)
+        return 2 * (2 * Rk * rows * (r_tile + 8) + _MMA_RING)
+    outs = ([leaf_dims[0]] if leaf_dims else []) + [m for m, _ in dims]
+    inter = outs[:-1]  # the last factor writes global memory
+    return 4 * (_FFMA_RING
+                + min(len(inter), 2) * Rk * max(inter, default=0) * r_tile)
+
+
+def _wgmma_takes(act_dtype, R: int, dims, leaf_dims) -> bool:
+    """The passes the WGMMA engine runs (`wgmma_takes` in the .cu): bf16
+    activations (with bf16 weights), radix 2, one level, ranks 64 or 128
+    and inputs a multiple of 64 rows, for the level and the leaf. The plan
+    pads columns to a multiple of 8 for it (TMA rows are 16-byte aligned)."""
+    def rank_ok(m):
+        return m in (64, 128)
+
+    (m, k), = dims if len(dims) == 1 else ((0, 0),)
+    return (act_dtype == torch.bfloat16 and R == 2 and rank_ok(m)
+            and k % 64 == 0 and (leaf_dims is None or (
+                rank_ok(leaf_dims[0]) and leaf_dims[1] % 64 == 0)))
+
+
+def _engine_for(wdtype, act_dtype, R: int, dims, leaf_dims) -> str:
+    if wdtype == torch.float32:
+        return "ffma"
+    return "wgmma" if _wgmma_takes(act_dtype, R, dims, leaf_dims) else "mma"
+
+
+@dataclasses.dataclass(frozen=True)
+class _PassMeta:
+    """Static topology of one fused pass."""
+
+    k: int           # number of levels fused in this pass (0: the leaf alone)
+    hiG: int         # NB / R^(l0+k)
+    loG: int         # R^l0
+    dims: tuple      # ((m, k) per level in this pass)
+    blk_in: int      # rows per block entering the pass
+    blk_out: int     # rows per block leaving the pass
+    leaf_dims: tuple | None  # (m0, k0) when pass 0 also applies the leaf
+    r_tile: int      # columns per CTA (per work item for WGMMA)
+    engine: str = "ffma"  # one of _ENGINES
+
+    @property
+    def has_leaf(self) -> bool:
+        return self.leaf_dims is not None
+
+
+def _r_tile_for(engine: str, R: int, dims, blk_in, leaf_dims) -> int | None:
     """Widest column tile whose CTA fits in shared memory, or None."""
-    Rk, rows = R ** len(dims), _maxrows(dims, blk_in, leaf_dims)
-    for rt in _R_TILES[wdtype]:
-        if _pass_smem_bytes(wdtype, Rk, rows, rt) <= _SMEM_LIMIT_BYTES:
+    for rt in _R_TILES[engine]:
+        if _pass_smem_bytes(engine, R, dims, blk_in, leaf_dims,
+                            rt) <= _SMEM_LIMIT_BYTES:
             return rt
     return None
 
@@ -123,7 +176,7 @@ class _K1Kernel:
         if self._lib is None:
             lib = load_kernel("k1_pass.cu")
             P, I = ctypes.c_void_p, ctypes.c_int
-            lib.k1_pass.argtypes = [P, P, P, P, P, P] + [I] * 12 + [P]
+            lib.k1_pass.argtypes = [P, P, P, P, P, P] + [I] * 13 + [P]
             lib.k1_pass.restype = I
             lib.k1_error_string.argtypes = [I]
             lib.k1_error_string.restype = ctypes.c_char_p
@@ -173,7 +226,8 @@ class _K1Kernel:
                 leafp.data_ptr() if pm.has_leaf else None,
                 wptrs, dims_m, dims_k, pm.k, R, pm.hiG, pm.loG, pm.blk_in,
                 pm.blk_out, m0, k0, r, int(x.dtype == torch.bfloat16),
-                int(wdt == torch.bfloat16), pm.r_tile, stream)
+                int(wdt == torch.bfloat16), _ENGINES.index(pm.engine),
+                pm.r_tile, stream)
         if err != 0:
             raise RuntimeButterflyError(
                 f"K1 launch failed: {lib.k1_error_string(err).decode()}")
@@ -239,23 +293,47 @@ class FusedButterflyPlan:
         leaf_dims = (None if bf.leaf is None
                      else (int(bf.leaf.shape[1]), int(bf.leaf.shape[2])))
 
-        def blk_in_at(l0):
-            return leaf_dims[1] if l0 == 0 and leaf_dims else level_dims[l0][1]
+        def blk_in_at(l0, with_leaf):
+            return leaf_dims[1] if with_leaf else level_dims[l0][1]
 
-        def fits(l0, k):
-            return _r_tile_for(
-                bf.dtype, R, level_dims[l0:l0 + k], blk_in_at(l0),
-                leaf_dims if l0 == 0 else None,
-            ) == _R_TILES[bf.dtype][0]
+        def engine_at(l0, k, with_leaf):
+            return _engine_for(bf.dtype, act_dtype, R, level_dims[l0:l0 + k],
+                               leaf_dims if with_leaf else None)
 
+        def smem(l0, k, with_leaf):
+            engine = engine_at(l0, k, with_leaf)
+            return engine, _pass_smem_bytes(
+                engine, R, level_dims[l0:l0 + k], blk_in_at(l0, with_leaf),
+                leaf_dims if with_leaf else None, _R_TILES[engine][0])
+
+        def two_ctas(nbytes):
+            return (nbytes + 1024) * _FFMA_MIN_CTAS <= _SMEM_PER_SM_BYTES
+
+        def fits(l0, k, with_leaf):
+            # a deeper pass stays on its engine (a bf16 level the WGMMA
+            # engine takes thus runs alone) and fits at its widest tile
+            engine, nbytes = smem(l0, k, with_leaf)
+            if engine != engine_at(l0, 1, with_leaf):
+                return False
+            if engine == "ffma":
+                return two_ctas(nbytes)
+            return nbytes <= _SMEM_LIMIT_BYTES
+
+        # An FFMA leaf that would cost level 0 its second CTA per SM gets a
+        # pass of its own (k = 0); FFMA is bound by operations, so the extra
+        # round trip of the activation is cheap.
+        engine0, nbytes0 = smem(0, 1, leaf_dims is not None)
+        leaf_alone = (leaf_dims is not None and engine0 == "ffma"
+                      and not two_ctas(nbytes0))
         # pass sizes: greedy, as on the TPU, but against shared memory
         fuse = max(1, min(fuse, max_k, _MAX_FUSE))
-        sizes = []
+        sizes = [0] if leaf_alone else []
         l0 = 0
         while l0 < Lv:
+            wl = l0 == 0 and leaf_dims is not None and not leaf_alone
             k = 1
             while (l0 + k < Lv and k < fuse and l0 + k + 1 <= max_k
-                   and fits(l0, k + 1)):
+                   and fits(l0, k + 1, wl)):
                 k += 1
             sizes.append(k)
             l0 += k
@@ -274,17 +352,19 @@ class FusedButterflyPlan:
                 Wr = levels[l0 + t].reshape(hiG, U, R, R, V, loG, m_t, k_t)
                 ws.append(Wr.permute(0, 5, 1, 4, 2, 6, 3, 7).reshape(
                     hiG, loG, U, V, R * m_t, R * k_t).contiguous())
-            pleaf = leaf_dims if p == 0 else None
+            wl = p == 0 and leaf_dims is not None
+            pleaf = leaf_dims if wl else None
             dims = tuple(level_dims[l0:l0 + k])
-            r_tile = _r_tile_for(bf.dtype, R, dims, blk_in_at(l0), pleaf)
+            engine = "ffma" if k == 0 else engine_at(l0, k, wl)
+            r_tile = _r_tile_for(engine, R, dims, blk_in_at(l0, wl), pleaf)
             check(r_tile is not None,
                   f"levels {l0}..{l0 + k - 1} do not fit one CTA's shared "
                   "memory even at the narrowest column tile",
                   InvalidArgumentsError)
             passes.append(_PassMeta(
-                k=k, hiG=hiG, loG=loG, dims=dims, blk_in=blk_in_at(l0),
-                blk_out=level_dims[l0 + k - 1][0], leaf_dims=pleaf,
-                r_tile=r_tile))
+                k=k, hiG=hiG, loG=loG, dims=dims, blk_in=blk_in_at(l0, wl),
+                blk_out=level_dims[l0 + k - 1][0] if k else leaf_dims[0],
+                leaf_dims=pleaf, r_tile=r_tile, engine=engine))
             pass_weights.append(ws)
             l0 += k
 
@@ -302,6 +382,8 @@ class FusedButterflyPlan:
         self.act_dtype = act_dtype
         self.passes = tuple(passes)
         self.num_passes = len(passes)
+        # WGMMA passes read rows by TMA, which needs 16-byte row strides
+        self._col_align = 8 if any(p.engine == "wgmma" for p in passes) else 1
         self._leafp = leafp
         self._pass_weights = pass_weights
 
@@ -312,10 +394,17 @@ class FusedButterflyPlan:
         check(x.ndim == 2 and x.shape[0] == self.shape[1],
               f"operand of shape {tuple(x.shape)} does not match the plan's "
               f"{self.shape}", InvalidArgumentsError)
-        cur = x.to(self.act_dtype).contiguous()
+        r = x.shape[1]
+        cur = x.to(self.act_dtype)
+        if r % self._col_align or cur.data_ptr() % 16:
+            # zero columns up to the alignment, on a fresh 16-byte-aligned
+            # tensor; they give zero columns, cut off below
+            cur = torch.nn.functional.pad(cur, (0, -r % self._col_align))
+        cur = cur.contiguous()
         for pm, ws in zip(self.passes, self._pass_weights):
             cur = run_pass(pm, self.radix, cur,
                            self._leafp if pm.has_leaf else None, ws)
+        cur = cur[:, :r]
         return cur[:, 0] if was_vec else cur
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:

@@ -11,14 +11,23 @@ each printing its numbers on lines of their own:
   2. build: K1 (`csrc/k1_pass.cu`) and K2 (`csrc/k2_cell.cu`) built by
      nvcc, both at once, with the compiler's report;
   3. kernel vs plain: K1 against its plain PyTorch version on the card, on
-     small shapes covering every dtype mode, no leaf, partial depth, varying
-     and odd ranks, wide blocks and a vector; K2 against `cells_plain` on
+     small shapes covering each of its three engines (FFMA, MMA, WGMMA) and
+     each path in them: every dtype mode, no leaf, the leaf in a pass of
+     its own, depths 1-3 (sibling stride V = 1, 2, 4), varying and odd
+     ranks (37, 50, 29; blocks 160, 320, 384), ragged r, r=1, WGMMA with
+     ranks 64 and 128, with and without the leaf, a leaf of 128 rows under
+     levels of 64, columns padded to 8, and one plan mixing MMA and WGMMA
+     passes; each case
+     checks that its plan has the engines its label names; K2 against
+     `cells_plain` on
      one and two buffers, plain-add cells, cells straddling two output
      tiles (dst mod 128 = 8 and 120) or running past the output, merged
      cells, device-made weight tiles, r in {1, 36, 1000}, and a weight
      stack of more than 2^31 bytes;
   4. flagship: a random butterfly at full width (NB=1024 blocks of 128 rows,
-     10 levels) applied in bf16 at r=2048 and in IEEE f32 at r=256;
+     10 levels) applied in bf16 at r=2048 (WGMMA, 10 passes) and in IEEE
+     f32 at r=256 (FFMA, the leaf alone and 10 passes), each also timed
+     pass by pass;
   5. real factorization: a 4096 x 1024 DCT matrix streamed through the
      factorizer, distilled to FFT form and applied through K1 at r=1024;
      that apply's output is held to a relative error of 1e-6 against the
@@ -86,6 +95,11 @@ def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
 
 def nbytes_of(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def pass_split(plan) -> list:
+    """(depth, column tile, engine) of each pass of a FusedButterflyPlan."""
+    return [(p.k, p.r_tile, p.engine) for p in plan.passes]
 
 
 def main() -> int:
@@ -161,13 +175,13 @@ def main() -> int:
         return torch.as_tensor(rng.standard_normal(shape),
                                dtype=torch.float32).to(dev, dtype)
 
-    def ranked_butterfly(NB, ranks, k_in):
+    def ranked_butterfly(NB, ranks, k_in, dtype=torch.float32):
         # leaf (NB, ranks[0], k_in); level l maps ranks[l] -> ranks[l+1]
         leaf = randn((NB, ranks[0], k_in)) / np.sqrt(k_in)
         levels = [randn((NB // 2 ** (l + 1), 2, 2, 2 ** l, ranks[l + 1],
                          ranks[l])) / np.sqrt(2 * ranks[l])
                   for l in range(len(ranks) - 1)]
-        return UniformButterfly(leaf, levels, 2)
+        return UniformButterfly(leaf, levels, 2).astype(dtype)
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
@@ -197,12 +211,21 @@ def main() -> int:
         ("wide blocks 160 (two row sweeps)", random_butterfly(
             4, 160, generator=gen(6), device=dev),
          torch.float32, torch.float32, 2, 100),
-        ("blocks 256 (16-column tile)", random_butterfly(
-            4, 256, generator=gen(7), device=dev),
+        ("f32 blocks 128, the leaf in a pass of its own", random_butterfly(
+            4, 128, generator=gen(19), device=dev),
+         torch.float32, torch.float32, 8, 70),
+        ("blocks 384, the leaf alone, three row sweeps", random_butterfly(
+            4, 384, generator=gen(7), device=dev),
          torch.float32, torch.float32, 2, 37),
         ("vector r=1", random_butterfly(32, 16, generator=gen(8),
                                         device=dev),
          torch.float32, torch.float32, 3, 1),
+        ("f32 w / bf16 act (FFMA on bf16 rows)", random_butterfly(
+            16, 32, generator=gen(12), device=dev),
+         torch.float32, torch.bfloat16, 2, 40),
+        ("FFMA depth 2 (V=1,2), ragged r", random_butterfly(
+            32, 16, num_levels=5, generator=gen(13), device=dev),
+         torch.float32, torch.float32, 8, 67),
         ("bf16 blocks 160 (64-column tile)", random_butterfly(
             4, 160, generator=gen(9), device=dev),
          torch.bfloat16, torch.bfloat16, 2, 100),
@@ -212,10 +235,39 @@ def main() -> int:
         ("bf16 vector r=1", random_butterfly(32, 16, generator=gen(11),
                                              device=dev),
          torch.bfloat16, torch.bfloat16, 3, 1),
+        ("MMA depth 3 (V=1,2,4), blocks 32", random_butterfly(
+            16, 32, generator=gen(14), device=dev),
+         torch.bfloat16, torch.bfloat16, 8, 72),
+        ("WGMMA blocks 128 with leaf, 3 column tiles", random_butterfly(
+            8, 128, generator=gen(15), device=dev),
+         torch.bfloat16, torch.bfloat16, 8, 384),
+        ("WGMMA blocks 64, ragged tile (r=200)", random_butterfly(
+            16, 64, generator=gen(16), device=dev),
+         torch.bfloat16, torch.bfloat16, 8, 200),
+        ("WGMMA no leaf, r=37 (padded to 40)", random_butterfly(
+            8, 128, generator=gen(17), with_leaf=False, device=dev),
+         torch.bfloat16, torch.bfloat16, 8, 37),
+        ("WGMMA depth 1 without a leaf", random_butterfly(
+            2, 128, generator=gen(20), with_leaf=False, device=dev),
+         torch.bfloat16, torch.bfloat16, 8, 136),
+        ("WGMMA vector r=1", random_butterfly(8, 64, generator=gen(18),
+                                              device=dev),
+         torch.bfloat16, torch.bfloat16, 8, 1),
+        ("WGMMA leaf 128 rows, levels 64", ranked_butterfly(
+            16, [128, 64, 64, 64, 64], 64, torch.bfloat16),
+         torch.bfloat16, torch.bfloat16, 8, 136),
+        ("MMA then WGMMA in one plan (real-fac ranks)", ranked_butterfly(
+            32, [64] * 5 + [128], 32, torch.bfloat16),
+         torch.bfloat16, torch.bfloat16, 8, 256),
     ]
     for label, bf, wdt, act, fuse, r in cases:
         plan = FusedButterflyPlan(bf.astype(wdt), fuse=fuse, act_dtype=act,
                                   device=dev)
+        engines = {p.engine for p in plan.passes}
+        words = label.split()
+        require(all(e in engines for e, word in (
+            ("wgmma", "WGMMA"), ("mma", "MMA")) if word in words),
+            f"{label}: the plan's passes are {pass_split(plan)}")
         x = randn((bf.shape[1],) if r == 1 else (bf.shape[1], r))
         got = plan.apply(x)
         want = plan.apply_plain(x)
@@ -227,7 +279,7 @@ def main() -> int:
         tol = TOL[torch.bfloat16 if torch.bfloat16 in (wdt, act)
                   else torch.float32]
         print(f"[3 kernel vs plain] {label}: passes "
-              f"{[(p.k, p.r_tile) for p in plan.passes]} rel err "
+              f"{pass_split(plan)} rel err "
               f"{err:.3e} (tol {tol:g})", flush=True)
         require(err <= tol, f"{label}: rel err {err:.3e} > {tol:g}")
 
@@ -352,6 +404,15 @@ def main() -> int:
                                        iters=10)
         b_ms, b_by = bound_ms(flops, bf.nbytes() + nbytes_of(x)
                               + nbytes_of(y), peak)
+        # each launch alone, on its own pass's input
+        pass_ms, cur = [], x
+        for pm, ws in zip(plan.passes, plan._pass_weights):
+            leafp = plan._leafp if pm.has_leaf else None
+            pass_ms.append(1e3 * device_time(
+                lambda: K1(pm, plan.radix, cur, leafp, ws), warmup=1,
+                iters=10))
+            cur = K1(pm, plan.radix, cur, leafp, ws)
+        del cur
         plain = plan.apply_plain(x)
         lib = bf.apply(x)
         err_plain = rel_err(y, plain)
@@ -362,8 +423,9 @@ def main() -> int:
         results[key] = dict(
             shape=f"NB={NB} blk={block} L=10 r={r} {x.dtype}".replace(
                 "torch.", ""),
-            passes=[(p.k, p.r_tile) for p in plan.passes], ms=ms,
-            tflops=flops / ms / 1e9, plain_ms=plain_ms,
+            passes=pass_split(plan), ms=ms, pass_ms=pass_ms,
+            tflops=flops / ms / 1e9, frac_of_bound=b_ms / ms,
+            plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=max_abs, rel_err_vs_plain=err_plain,
             rel_err_vs_library=err_lib)
@@ -376,7 +438,8 @@ def main() -> int:
                            dtype=torch.float32).to(dev, torch.bfloat16)
     rel_B = rel_err(plan_B.apply(xs16), plan_A.apply(xs16.float()))
     require(rel_B <= 5e-2, f"bf16 vs f32 rel err {rel_B:.3e}")
-    print(f"[4 flagship] bf16 rel err vs the f32 kernel: {rel_B:.3e}; "
+    print(f"[4 flagship] bf16 rel err vs the f32 kernel: {rel_B:.3e} (the "
+          "reference's method gave 5.5e-3 on the TPU); "
           f"K1 launches on the main path: {launches_flagship}", flush=True)
     del plan_B, plan_A, bf16, bf32, x16, x32, yB, yA
     torch.cuda.empty_cache()
@@ -407,8 +470,9 @@ def main() -> int:
                             + nbytes_of(yDb), PEAK_F32)
     real = dict(
         shape=f"n={nD} m={mD} NB={fp.plan.NB} rank={fp.rank} r={rD} float32",
-        passes=[(p.k, p.r_tile) for p in fp.plan.passes], setup_s=setup_D,
+        passes=pass_split(fp.plan), setup_s=setup_D,
         rel_err_vs_dense=rel_D, ms=ms_D, tflops=flops_D / ms_D / 1e9,
+        frac_of_bound=bD_ms / ms_D,
         apply_ms=apply_D, plain_ms=plain_D, library_ms=lib_D,
         bound_ms=bD_ms, bound_by=bD_by,
         max_abs_err=float((yDb.double() - plainDb.double()).abs().max()),

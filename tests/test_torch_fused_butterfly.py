@@ -171,18 +171,37 @@ def test_pass_weight_relayout_matches_unfused_levels():
 
 
 @pytest.mark.parametrize(
-    "wdtype,ranks,k_in,NB,want",
-    [("float32", [128] * 4, 128, 8, [(1, 64)] * 3),    # flagship blocks
-     ("bfloat16", [128] * 4, 128, 8, [(1, 128)] * 3),
+    "wdtype,act,ranks,k_in,NB,want",
+    # flagship blocks: in f32 the leaf runs alone (k=0), so that every
+    # FFMA pass keeps two CTAs per SM
+    [("float32", "float32", [128] * 4, 128, 8,
+      [(0, 64, "ffma")] + [(1, 64, "ffma")] * 3),
+     ("bfloat16", "bfloat16", [128] * 4, 128, 8, [(1, 128, "wgmma")] * 3),
      # real-fac ranks: leaf (64, 32), levels of rank 64, last level m=128
-     ("float32", [64] * 5 + [128], 32, 32, [(2, 64), (2, 64), (1, 64)])],
-    ids=["f32-blk128", "bf16-blk128", "f32-real-fac-ranks"])
-def test_pass_split_follows_shared_memory(wdtype, ranks, k_in, NB, want):
-    """Passes are deepened while a CTA's tiles and weight ring fit in the
-    H100's 227 KB of shared memory at the engine's widest column tile."""
+     ("float32", "float32", [64] * 5 + [128], 32, 32, [(1, 64, "ffma")] * 5),
+     # bf16 weights on float activations: the MMA engine, depth 1
+     ("bfloat16", "float32", [128] * 4, 128, 8, [(1, 128, "mma")] * 3),
+     # small blocks fuse deeper: FFMA while two CTAs fit an SM, MMA while
+     # one CTA fits
+     ("float32", "float32", [16] * 6, 16, 32,
+      [(2, 64, "ffma"), (2, 64, "ffma"), (1, 64, "ffma")]),
+     ("bfloat16", "bfloat16", [32] * 5, 32, 16,
+      [(3, 128, "mma"), (1, 128, "mma")]),
+     # one plan, two engines: the leaf's 32 inputs are no multiple of 64
+     ("bfloat16", "bfloat16", [64] * 5 + [128], 32, 32,
+      [(2, 128, "mma")] + [(1, 128, "wgmma")] * 3)],
+    ids=["f32-blk128", "bf16-blk128", "f32-real-fac-ranks",
+         "bf16w-f32act-blk128", "f32-blk16-depth2", "bf16-blk32-depth3",
+         "bf16-real-fac-ranks-mixed"])
+def test_pass_split_follows_shared_memory(wdtype, act, ranks, k_in, NB,
+                                          want):
+    """Each pass gets an engine, a depth and a column tile at plan time:
+    bf16 levels the WGMMA engine takes run one per pass; FFMA passes are
+    deepened while two CTAs fit an SM's shared memory, MMA passes while one
+    CTA fits the H100's 227 KB, at the engine's widest column tile."""
     from butterfly_tpu_torch.ops.fused_butterfly import (
         _SMEM_LIMIT_BYTES,
-        _maxrows,
+        _SMEM_PER_SM_BYTES,
         _pass_smem_bytes,
     )
 
@@ -190,9 +209,79 @@ def test_pass_split_follows_shared_memory(wdtype, ranks, k_in, NB, want):
     leaf, levels = _weights(NB, ranks, k_in, num_levels, True, 13)
     _, tb = _both(leaf, levels)
     wdt = getattr(torch, wdtype)
-    plan = FusedButterflyPlan(tb.astype(wdt), fuse=8, device="cpu")
-    assert [(p.k, p.r_tile) for p in plan.passes] == want
+    plan = FusedButterflyPlan(tb.astype(wdt), fuse=8,
+                              act_dtype=getattr(torch, act), device="cpu")
+    assert [(p.k, p.r_tile, p.engine) for p in plan.passes] == want
     for pm in plan.passes:
-        rows = _maxrows(pm.dims, pm.blk_in, pm.leaf_dims)
-        assert _pass_smem_bytes(wdt, 2 ** pm.k, rows,
-                                pm.r_tile) <= _SMEM_LIMIT_BYTES
+        nbytes = _pass_smem_bytes(pm.engine, 2, pm.dims, pm.blk_in,
+                                  pm.leaf_dims, pm.r_tile)
+        assert nbytes <= _SMEM_LIMIT_BYTES
+        if pm.engine == "ffma" and pm.k > 1:
+            assert 2 * (nbytes + 1024) <= _SMEM_PER_SM_BYTES
+
+
+@pytest.mark.parametrize(
+    "wdtype,act,want",
+    [("float32", "float32", ["ffma"] * 5),
+     ("bfloat16", "bfloat16", ["mma"] + ["wgmma"] * 3)],
+    ids=["f32-ffma", "bf16-mma-wgmma"])
+def test_pass_weight_relayout_matches_unfused_levels_new_split(wdtype, act,
+                                                               want):
+    """The per-pass re-layout at the split the engines get (real-fac ranks:
+    five single-level FFMA passes; in bf16 a depth-2 MMA pass, then
+    single-level WGMMA passes) still puts every level's W[h, c, d, lo] at
+    the block each pass expects, and the plain passes reproduce the
+    unfused apply."""
+    R = 2
+    leaf, levels = _weights(32, [64] * 5 + [128], 32, 5, True, 21)
+    _, tb = _both(leaf, levels)
+    wdt = getattr(torch, wdtype)
+    tb = tb.astype(wdt)
+    plan = FusedButterflyPlan(tb, fuse=8, act_dtype=getattr(torch, act),
+                              device="cpu")
+    assert [pm.engine for pm in plan.passes] == want
+    l0 = 0
+    for pm, ws in zip(plan.passes, plan._pass_weights):
+        for t, Wp in enumerate(ws):
+            W = tb.levels[l0 + t]
+            m, k = W.shape[4:]
+            U, V = R ** (pm.k - 1 - t), R ** t
+            Wb = Wp.reshape(pm.hiG, pm.loG, U, V, R, m, R, k)
+            # (hiG, loG, U, V, c, m, d, k) -> (hiG, U, c, d, V, loG, m, k)
+            assert torch.equal(
+                Wb.permute(0, 2, 4, 6, 3, 1, 5, 7).reshape(W.shape), W)
+        l0 += pm.k
+    x = torch.from_numpy(_x(tb.shape[1], 5, 22))
+    got = plan.apply(x).float().numpy()
+    want_y = tb.astype(torch.float32).apply(x).numpy()
+    assert _rel(got, want_y) <= (1e-6 if wdtype == "float32" else 5e-2)
+
+
+@pytest.mark.parametrize(
+    "wdtype,act,NB,ranks,k_in,engines",
+    [("float32", "float32", 16, [16] * 5, 16, {"ffma"}),
+     ("float32", "float32", 4, [128] * 3, 128, {"ffma"}),
+     ("bfloat16", "bfloat16", 8, [64] * 4, 64, {"wgmma"}),
+     ("bfloat16", "float32", 8, [64] * 4, 64, {"mma"})],
+    ids=["f32-ffma-depth2", "f32-ffma-leaf-alone", "bf16-wgmma",
+         "bf16w-f32act-mma"])
+def test_new_split_matches_jax_kernel(wdtype, act, NB, ranks, k_in,
+                                      engines):
+    """The port's plan at the split its engines get against the JAX
+    package's fused plan in interpret mode (its own split), same seeded
+    numpy weights; r=12 also exercises the column padding of WGMMA plans."""
+    leaf, levels = _weights(NB, ranks, k_in, len(ranks) - 1, True, 31)
+    jb, tb = _both(leaf, levels)
+    jdt, tdt = getattr(jnp, wdtype), getattr(torch, wdtype)
+    jplan = JaxFusedPlan(jb.astype(jdt), fuse=3, r_tile=128, interpret=True,
+                         act_dtype=getattr(jnp, act))
+    plan = FusedButterflyPlan(tb.astype(tdt), fuse=8,
+                              act_dtype=getattr(torch, act), device="cpu")
+    assert {pm.engine for pm in plan.passes} == engines
+    assert (plan.passes[0].k == 0) == (ranks[0] == 128 and act == "float32")
+    x = _x(jb.shape[1], 12, 32)
+    want = np.asarray(jplan.apply(jnp.asarray(x)).astype(jnp.float32))
+    got = plan.apply(torch.from_numpy(x))
+    assert got.dtype == getattr(torch, act) and got.shape == want.shape
+    tol = 1e-5 if wdtype == act == "float32" else 2e-2
+    assert _rel(got.float().numpy(), want) <= tol
