@@ -6,51 +6,55 @@
 // What it computes. A cell adds one contribution to the output:
 //   kind 0:  y[dst : dst+128, :] += W[widx] @ buf[src][blk*128 : +128, :]
 //   kind 1:  y[dst : dst+128, :] += buf[src][blk*128 : +128, :]
-// with `dst` only 8-aligned. The kernel computes, for every output row and
-// column, the sum of all cells' contributions in IEEE float32 (FFMA only, no
-// TF32). Source rows past the end of a buffer read as zero, and ragged
-// columns are masked, so neither the buffers nor r need padding.
+// with `dst` only 8-aligned. Every output is the sum of its cells'
+// contributions in IEEE float32 (FFMA only, no TF32). Source rows past the
+// end of a buffer read as zero, and ragged columns are masked, so neither
+// the buffers nor r need padding. Each output tile is stored once; there
+// are no atomics.
 //
-// What differs from the TPU design. The TPU kernel keeps an Hb-row output
-// band resident in VMEM over a sequential grid, folds 128-row band overlaps
-// afterwards, and splits the program into SMEM-sized segments. None of that
-// exists here. The host (ops/cellsp.py) builds, for every 128-row output
-// tile, a CSR list of *entries*: a cell whose `dst` is not a multiple of 128
-// straddles two tiles and enters both lists, each time with the row
-// sub-range of its weight tile (w_row0, nrows) and its row offset inside the
-// output tile (out_row0). No weight is duplicated and no atomics are needed.
+// The host's tables (ops/cellsp.py `_cell_tables`). A cell whose `dst` is
+// not a multiple of 128 straddles two 128-row output tiles and is cut into
+// one piece per tile. Each matmul piece is trimmed to the nonzero extent of
+// its weight tile: its rows to the 8-row groups that hold a nonzero, its
+// depth to the K-chunks of 16 that hold a nonzero in those rows (exact:
+// only zero products are left out; a piece of zeros is dropped). The
+// pieces of a tile that read one source block with disjoint rows are
+// merged into one *group* when that costs no more work than staging them
+// apart. A group is (source buffer, first source row, [k0, k1) in chunks,
+// mask of the 8-row groups it covers, and for each 8-row group of the
+// output tile the weight tile and its row group). The output tiles are
+// launched heaviest first (longest-processing-time order) through a
+// host-sorted tile list.
 //
-// The grid is (output tiles x column tiles of 128). A CTA of 256 threads
-// walks its tile's kind-0 list in K-chunks of 16: each chunk stages the
-// entry's weight rows (k-major, 4-byte cp.async) and the source chunk
-// (row-major, 16-byte cp.async with zero fill) in a 3-deep ring. A thread
-// owns an 8 x 8 block of the tile: rows {4ty..4ty+3} and {64+4ty..+3},
-// columns {4tx..4tx+3} and {64+4tx..+3}. A warp therefore owns two aligned
-// 8-row groups, and since entry boundaries are multiples of 8, a warp either
-// takes part in an entry's rows or skips them as a whole (no divergence, no
-// zero-filled weight rows). Kind-1 entries are added at the end straight
-// from global memory. Every tile is stored once; a tile without entries
-// stores zeros.
-//
-// Accuracy. Each entry's 128-deep product is summed in registers and then
-// added into the tile's running totals, which live in shared memory (each
-// thread reads and writes only its own 64 totals, once per entry, so no
-// barrier is needed). A first version kept one register accumulator per
-// output across the whole entry list — FMA chains of ~7,700 terms in
-// bench E's second pass — and read 8.8e-7 against the operator where the
-// plain passes read 4.0e-7; summing per entry reads 4.0e-7 too. The totals
-// take 64 KB of shared memory, so the K-chunk is 16 deep to keep two CTAs
-// per SM (115,456 bytes each).
+// The weight tiles are stored k-major (each tile transposed; CellPlan keeps
+// the stack so). The grid is (output tiles x column tiles of 128). A CTA
+// of 256 threads walks its tile's groups chunk by chunk through a 3-deep
+// cp.async ring: each chunk stages the weight rows of the covered row
+// groups (k-major, one row group of one k per thread: two 16-byte copies)
+// and the source chunk (row-major, 16-byte copies with zero fill), both
+// XOR-swizzled. The copies of the chunk two ahead are issued after this
+// chunk's products, their index loaded before them, so that its latency
+// hides behind the products. A thread owns an 8 x 8 block of the tile:
+// rows {4ty..4ty+3} and {64+4ty..+3}, columns {4tx..4tx+3} and
+// {64+4tx..+3}. A warp owns two aligned 8-row groups, so it computes or
+// skips each as a whole. Each group's product is summed in registers and
+// then added into the tile's running totals in shared memory (each thread
+// reads and writes only its own totals, once per group: no entry list
+// becomes one long FMA chain); plain adds and the one store of the tile
+// read the totals back row by row.
 //
 // What bounds it on the H100. At bench E's shapes (n=4096, r=1024) the two
-// passes hold 255 MB of weights and do 130.7 GFLOP: 1.95 ms at the 67 TFLOP/s
-// float32 (non-tensor) peak against 0.12 ms to move weights, x, t and y once
-// at 3.35 TB/s, so it is bound by operations. With a 128-column tile each
-// weight tile is read r/128 times (8 at r=1024, 2.0 GB from HBM or L2: the
-// column tiles of one output tile are launched next to each other).
-// Left for later PRs: tensor cores (3xTF32 or a split-bf16 scheme to keep
-// IEEE-level accuracy), load balance between dense and sparse output tiles,
-// and a persistent schedule.
+// passes execute 68.5 M flops a column after trimming (127.6 M padded,
+// 66.5 M useful): 70.2 GFLOP, 1.05 ms at the 67 TFLOP/s float32 peak,
+// against 0.12 ms to move weights, x, t and y once, so it is bound by
+// operations. It runs them in about 2.9 ms, 36% of that peak: the loop
+// over a staged chunk is bound by shared-memory reads (four 16-byte reads
+// per 64 FFMA for the 8 x 8 thread tile, which is also why the copies were
+// made 16-byte and nearly free of bank conflicts), and a barrier closes
+// every chunk. A 3xTF32 engine on mma.sync (hi/lo TF32 splits, each k-step
+// of 8 in a zeroed tensor-core accumulator, FADD into IEEE sums) held
+// IEEE-level accuracy but computed no faster, so it is not built here;
+// wgmma would be the next step for tensor cores (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,23 +64,24 @@ namespace {
 constexpr int kG = 128;              // GM = GK: rows and depth of a cell
 constexpr int kRT = 128;             // columns per CTA
 constexpr int kThreads = 256;
-constexpr int kKC = 16;              // K-chunk (keeps two CTAs per SM)
-constexpr int kChunks = kG / kKC;    // chunks per entry
+constexpr int kKC = 16;              // K-chunk (the tables' depth step)
 constexpr int kStages = 3;           // cp.async ring depth
-constexpr int kWStride = kG + 4;     // staged weight chunk: k-major rows
-constexpr int kWElems = kKC * kWStride;
-constexpr int kXElems = kKC * kRT;   // staged source chunk: row-major
-constexpr int kStageElems = kWElems + kXElems;
+constexpr int kNRG = kG / 8;         // 8-row groups of a tile
+constexpr int kGroupInt4 = (4 + kNRG) / 4;  // a group record in int4
+constexpr int kChunkElems = kKC * kG;       // one staged operand chunk
+constexpr int kStageElems = 2 * kChunkElems;
 constexpr int kMaxBufs = 4;
 constexpr int kAccElems = kG * kRT;  // running totals of the tile
 constexpr size_t kSmemBytes = sizeof(float) * (kStages * kStageElems + kAccElems);
+static_assert(kThreads == kKC * kNRG, "staging: one row group of one k per thread");
 
 struct CellArgs {
-  const float* W;                 // (T_w, 128, 128) weight tiles
+  const float* W;                 // (T_w, 128, 128) weight tiles, k-major
   const float* bufs[kMaxBufs];    // (rows_i, r) row-major
   int64_t buf_rows[kMaxBufs];
-  const int* ptr0;                // (n_tiles + 1) CSR of kind-0 entries
-  const int4* ent0;
+  const int* order;               // (n_tiles) output tiles, heaviest first
+  const int* gptr;                // (n_tiles + 1) CSR of groups
+  const int4* grp;                // groups, kGroupInt4 int4 each
   const int* ptr1;                // (n_tiles + 1) CSR of kind-1 entries
   const int4* ent1;
   float* y;                       // (n_out, r)
@@ -84,15 +89,14 @@ struct CellArgs {
   int vec;                        // r % 4 == 0 and every pointer 16-byte aligned
 };
 
-// An entry: x = weight tile index (kind 0), y = source buffer,
-// z = first source row, w = out_row0 | w_row0 << 8 | nrows << 16.
+// A kind-1 entry: y = source buffer, z = first source row,
+// w = out_row0 | w_row0 << 8 | nrows << 16 (x and the depth bits unused).
 struct Entry {
-  int widx, src, src_row0, out_row0, w_row0, nrows;
+  int src, src_row0, out_row0, w_row0, nrows;
 };
 
 __device__ __forceinline__ Entry unpack(const int4 e) {
   Entry d;
-  d.widx = e.x;
   d.src = e.y;
   d.src_row0 = e.z;
   d.out_row0 = e.w & 0xff;
@@ -101,12 +105,27 @@ __device__ __forceinline__ Entry unpack(const int4 e) {
   return d;
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
+// Element (k, c) of a staged 16 x 128 chunk, and element (row, col) of the
+// totals: the column XOR-swizzled by the row in steps of 8 columns, so
+// that 16-byte vectors stay whole and the staging writes and flushes
+// spread over the banks.
+__device__ __forceinline__ int chunk_at(int k, int c) {
+  return k * kG + (c ^ ((k & 3) << 3));
+}
+__device__ __forceinline__ int tot_at(int row, int col) {
+  return row * kRT + (col ^ ((row & 7) << 3));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
                "r"(bytes));
 }
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(bytes));
@@ -119,13 +138,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Does this thread's row quad [q0, q0+4) lie inside the entry's rows? Entry
-// boundaries are multiples of 8, so the answer is the same for the whole
-// warp (its two 8-row groups are aligned).
-__device__ __forceinline__ bool quad_in(const Entry& e, int q0) {
-  return q0 >= e.out_row0 && q0 < e.out_row0 + e.nrows;
-}
-
 // Buffer i's pointer and row count without indexing the parameter arrays
 // at run time (which would copy them to the stack).
 __device__ __forceinline__ const float* buf_of(const CellArgs& p, int i) {
@@ -136,200 +148,228 @@ __device__ __forceinline__ int64_t rows_of(const CellArgs& p, int i) {
                                                                     : p.buf_rows[3];
 }
 
-__global__ void __launch_bounds__(kThreads, 2) k2_cell_kernel(const CellArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;           // column group
-  const int ty = tid / 16;           // row group
-  const int rt = blockIdx.x % p.n_rtiles;
-  const int tile = blockIdx.x / p.n_rtiles;
-  const int col0 = rt * kRT;
-  const int r = p.r;
-
-  // running totals in shared memory (each thread touches only its own
-  // elements), one entry's product in registers
-  float* tot = smem + kStages * kStageElems;
-  float acc[8][8];
-  auto tot_at = [&](int i, int h) {
-    const int row = i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4;
-    return reinterpret_cast<float4*>(tot + row * kRT + (h ? 64 : 0) + 4 * tx);
-  };
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) *tot_at(i, h) = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  // ---- kind 0: pipelined weight x source products, summed per entry ----
-  const int e0 = p.ptr0[tile];
-  const int nch = (p.ptr0[tile + 1] - e0) * kChunks;
-  const int pk = tid % kKC;          // staged weight column (k) of this thread
-  const int prow = tid / kKC;        // staged weight row, plus 16*i
-
-  // stage chunk ch (if any) and close a cp.async group either way, so that
-  // the group count stays uniform for the waits
-  auto issue = [&](int ch) {
-    if (ch < nch) {
-      const Entry e = unpack(__ldg(p.ent0 + e0 + ch / kChunks));
-      const int q0 = (ch % kChunks) * kKC;
-      float* ws = smem + (ch % kStages) * kStageElems;
-      float* xs = ws + kWElems;
-      const float* Wt = p.W + (int64_t)e.widx * (kG * kG) +
-                        (int64_t)(e.w_row0 - e.out_row0) * kG + q0 + pk;
-#pragma unroll
-      for (int i = 0; i < kG / (kThreads / kKC); ++i) {
-        const int o = prow + (kThreads / kKC) * i;  // output row of the tile
-        if (o >= e.out_row0 && o < e.out_row0 + e.nrows)
-          cp_async4(ws + pk * kWStride + o, Wt + (int64_t)o * kG, 4);
-      }
-      const float* buf = buf_of(p, e.src);
-      const int64_t nrow = rows_of(p, e.src);
-#pragma unroll
-      for (int i = 0; i < kXElems / 4 / kThreads; ++i) {
-        const int s = i * kThreads + tid;
-        const int kr = s / (kRT / 4);
-        const int c = (s % (kRT / 4)) * 4;
-        const int64_t row = (int64_t)e.src_row0 + q0 + kr;
-        const int col = col0 + c;
-        const bool rok = row < nrow;
-        float* dst = xs + kr * kRT + c;
-        if (p.vec) {
-          const bool ok = rok && col < r;
-          cp_async16(dst, ok ? buf + row * r + col : buf, ok ? 16 : 0);
-        } else {
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const bool ok = rok && col + u < r;
-            cp_async4(dst + u, ok ? buf + row * r + col + u : buf, ok ? 4 : 0);
-          }
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  for (int ch = 0; ch < nch; ++ch) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk ch landed; chunk ch-1's stage is free
-    issue(ch + kStages - 1);
-    const Entry e = unpack(__ldg(p.ent0 + e0 + ch / kChunks));
-    const bool a0 = quad_in(e, 4 * ty);
-    const bool a1 = quad_in(e, 64 + 4 * ty);
-    if (ch % kChunks == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-    if (a0 || a1) {
-      const float* ws = smem + (ch % kStages) * kStageElems;
-      const float* xs = ws + kWElems;
-#pragma unroll 8
-      for (int kk = 0; kk < kKC; ++kk) {
-        const float4 w0 = *reinterpret_cast<const float4*>(ws + kk * kWStride + 4 * ty);
-        const float4 w1 = *reinterpret_cast<const float4*>(ws + kk * kWStride + 64 + 4 * ty);
-        const float4 x0 = *reinterpret_cast<const float4*>(xs + kk * kRT + 4 * tx);
-        const float4 x1 = *reinterpret_cast<const float4*>(xs + kk * kRT + 64 + 4 * tx);
-        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-        if (a0) {
-          const float wv[4] = {w0.x, w0.y, w0.z, w0.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-        }
-        if (a1) {
-          const float wv[4] = {w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              acc[4 + i][j] = fmaf(wv[i], xv[j], acc[4 + i][j]);
-        }
-      }
-    }
-    if (ch % kChunks == kChunks - 1 && (a0 || a1)) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float4 t = *tot_at(i, h);
-          t.x += acc[i][4 * h];
-          t.y += acc[i][4 * h + 1];
-          t.z += acc[i][4 * h + 2];
-          t.w += acc[i][4 * h + 3];
-          *tot_at(i, h) = t;
-        }
+// Position in a tile's chunk program: group g (its source and first source
+// row), chunk c of [c0, c1), the group's row-group mask.
+struct Cursor {
+  int g, g_end, c, c0, c1, mask, src, row0;
+  __device__ __forceinline__ void load(const CellArgs& p) {
+    if (g < g_end) {
+      const int4 h = __ldg(p.grp + (int64_t)g * kGroupInt4);
+      src = h.x;
+      row0 = h.y;
+      c0 = h.z & 0xff;
+      c1 = h.z >> 8;
+      mask = h.w;
+      c = c0;
     }
   }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float4 t = *tot_at(i, h);
-      acc[i][4 * h] = t.x;
-      acc[i][4 * h + 1] = t.y;
-      acc[i][4 * h + 2] = t.z;
-      acc[i][4 * h + 3] = t.w;
+  __device__ __forceinline__ void next(const CellArgs& p) {
+    if (++c == c1) {
+      ++g;
+      load(p);
     }
+  }
+};
 
-  // columns this thread owns: 4tx.. and 64+4tx.. of the tile
-  auto col_of = [&](int j) { return col0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4); };
-  auto row_of = [&](int i) { return i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4; };
+// This thread's weight row group of group g: (weight tile << 4 | its row
+// group), or -1 where the group covers none.
+__device__ __forceinline__ int stage_slot(const CellArgs& p, int g, int tid) {
+  return __ldg(reinterpret_cast<const int*>(p.grp + (int64_t)g * kGroupInt4 + 1) + tid / kKC);
+}
 
-  // ---- kind 1: source rows added straight from global memory -----------
-  for (int k = p.ptr1[tile]; k < p.ptr1[tile + 1]; ++k) {
-    const Entry e = unpack(__ldg(p.ent1 + k));
-    const float* buf = buf_of(p, e.src);
-    const int64_t nrow = rows_of(p, e.src);
+// Stage the cursor's chunk: the weight rows k-major (thread tid copies
+// the 8 rows of row group tid / 16 at k = tid % 16, 32 contiguous bytes of
+// the k-major tile; nothing where the group covers none: no warp reads
+// those rows) and the source rows row-major.
+__device__ __forceinline__ void stage(const CellArgs& p, const Cursor& cur, int slot, float* st,
+                                      int col0, int tid) {
+  const int q0 = cur.c * kKC;
+  float* ws = st;
+  float* xs = st + kChunkElems;
+  const int rg = tid / kKC, pk = tid % kKC;
+  if (slot >= 0) {
+    const float* w = p.W + (int64_t)(slot >> 4) * (kG * kG) + (int64_t)(q0 + pk) * kG +
+                     ((slot & 15) << 3);
+    cp_async16(ws + chunk_at(pk, 8 * rg), w);
+    cp_async16(ws + chunk_at(pk, 8 * rg + 4), w + 4);
+  }
+  const float* buf = buf_of(p, cur.src);
+  const int64_t nrow = rows_of(p, cur.src);
+  const int r = p.r;
+#pragma unroll
+  for (int i = 0; i < kChunkElems / 4 / kThreads; ++i) {
+    const int s = i * kThreads + tid;
+    const int kr = s / (kRT / 4);
+    const int cc = (s % (kRT / 4)) * 4;
+    const int64_t row = (int64_t)cur.row0 + q0 + kr;
+    const int col = col0 + cc;
+    const bool rok = row < nrow;
+    float* dst = xs + chunk_at(kr, cc);
+    if (p.vec) {
+      const bool ok = rok && col < r;
+      cp_async16_zfill(dst, ok ? buf + row * r + col : buf, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool ok = rok && col + u < r;
+        cp_async4_zfill(dst + u, ok ? buf + row * r + col + u : buf, ok ? 4 : 0);
+      }
+    }
+  }
+}
+
+// The thread's 8 x 8 block of a group's product, in registers.
+struct Engine {
+  float acc[8][8];
+  int tx, ty, warp;
+  __device__ __forceinline__ explicit Engine(int tid) {
+    tx = tid % 16;
+    ty = tid / 16;
+    warp = tid / 32;
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  // one staged chunk of the product (the warp's row groups w and w + 8)
+  __device__ __forceinline__ void chunk(const float* ws, const float* xs, int mask) {
+    const bool a0 = (mask >> warp) & 1, a1 = (mask >> (warp + 8)) & 1;
+    if (!a0 && !a1) return;
+#pragma unroll
+    for (int kk = 0; kk < kKC; ++kk) {
+      const float4 w0 = *reinterpret_cast<const float4*>(ws + chunk_at(kk, 4 * ty));
+      const float4 w1 = *reinterpret_cast<const float4*>(ws + chunk_at(kk, 64 + 4 * ty));
+      const float4 x0 = *reinterpret_cast<const float4*>(xs + chunk_at(kk, 4 * tx));
+      const float4 x1 = *reinterpret_cast<const float4*>(xs + chunk_at(kk, 64 + 4 * tx));
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      if (a0) {
+        const float wv[4] = {w0.x, w0.y, w0.z, w0.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
+      }
+      if (a1) {
+        const float wv[4] = {w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[4 + i][j] = fmaf(wv[i], xv[j], acc[4 + i][j]);
+      }
+    }
+  }
+  // the group's sums into the tile's totals
+  __device__ __forceinline__ void flush(float* tot, int mask) {
+    const bool a0 = (mask >> warp) & 1, a1 = (mask >> (warp + 8)) & 1;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int o = row_of(i);
-      if (o < e.out_row0 || o >= e.out_row0 + e.nrows) continue;
-      const int64_t row = (int64_t)e.src_row0 + (o - e.out_row0 + e.w_row0);
-      if (row >= nrow) continue;
-      const float* src = buf + row * r;
+      if (!(i < 4 ? a0 : a1)) continue;
+      const int row = i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = col_of(4 * h);
-        if (p.vec) {
-          if (col < r) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(src + col));
-            acc[i][4 * h] += v.x;
-            acc[i][4 * h + 1] += v.y;
-            acc[i][4 * h + 2] += v.z;
-            acc[i][4 * h + 3] += v.w;
-          }
-        } else {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if (col + u < r) acc[i][4 * h + u] += __ldg(src + col + u);
-        }
+        float4* q = reinterpret_cast<float4*>(tot + tot_at(row, 64 * h + 4 * tx));
+        float4 v = *q;
+        v.x += acc[i][4 * h];
+        v.y += acc[i][4 * h + 1];
+        v.z += acc[i][4 * h + 2];
+        v.w += acc[i][4 * h + 3];
+        *q = v;
       }
     }
   }
+};
 
-  // ---- one store of the tile --------------------------------------------
+__global__ void __launch_bounds__(kThreads, 2) k2_cell_kernel(const CellArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  float* tot = smem + kStages * kStageElems;
+  const int tid = threadIdx.x;
+  const int tile = __ldg(p.order + blockIdx.x / p.n_rtiles);
+  const int col0 = (blockIdx.x % p.n_rtiles) * kRT;
+  const int r = p.r;
+  for (int i = tid; i < kAccElems / 4; i += kThreads)
+    reinterpret_cast<float4*>(tot)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // ---- kind 0: the groups, chunk by chunk through the cp.async ring ----
+  Cursor in;
+  in.g = __ldg(p.gptr + tile);
+  in.g_end = __ldg(p.gptr + tile + 1);
+  in.load(p);
+  Cursor out = in;
+  int in_stage = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t row = (int64_t)tile * kG + row_of(i);
-    if (row >= p.n_out) continue;
-    float* dst = p.y + row * r;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = col_of(4 * h);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (in.g < in.g_end) {
+      stage(p, in, stage_slot(p, in.g, tid), smem + in_stage * kStageElems, col0, tid);
+      in.next(p);
+    }
+    cp_async_commit();
+    ++in_stage;
+  }
+  Engine eng(tid);
+  int stg = 0;
+  while (out.g < out.g_end) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // this chunk landed; the previous chunk's stage is free
+    // the copies of the chunk kStages - 1 ahead go after the products;
+    // their index is loaded now
+    const Cursor ahead = in;
+    const int slot = in.g < in.g_end ? stage_slot(p, in.g, tid) : -1;
+    const float* st = smem + stg * kStageElems;
+    if (out.c == out.c0) eng.zero();
+    eng.chunk(st, st + kChunkElems, out.mask);
+    if (out.c + 1 == out.c1) eng.flush(tot, out.mask);
+    if (ahead.g < ahead.g_end) {
+      stage(p, ahead, slot, smem + in_stage * kStageElems, col0, tid);
+      in.next(p);
+    }
+    cp_async_commit();  // a group even when empty: the waits count groups
+    in_stage = in_stage + 1 == kStages ? 0 : in_stage + 1;
+    out.next(p);
+    stg = stg + 1 == kStages ? 0 : stg + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- kind 1 and the one store of the tile, row by row ----------------
+  const int e1 = __ldg(p.ptr1 + tile), e1_end = __ldg(p.ptr1 + tile + 1);
+  for (int i = 0; i < kAccElems / 4 / kThreads; ++i) {
+    const int s = i * kThreads + tid;
+    const int row = s / (kRT / 4);
+    const int cc = (s % (kRT / 4)) * 4;
+    const int col = col0 + cc;
+    const float4 t4 = *reinterpret_cast<const float4*>(tot + tot_at(row, cc));
+    float v[4] = {t4.x, t4.y, t4.z, t4.w};
+    for (int k = e1; k < e1_end; ++k) {
+      const Entry e = unpack(__ldg(p.ent1 + k));
+      if (row < e.out_row0 || row >= e.out_row0 + e.nrows) continue;
+      const int64_t srow = (int64_t)e.src_row0 + (row - e.out_row0 + e.w_row0);
+      if (srow >= rows_of(p, e.src)) continue;
+      const float* src = buf_of(p, e.src) + srow * r;
       if (p.vec) {
-        if (col < r)
-          *reinterpret_cast<float4*>(dst + col) =
-              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                          acc[i][4 * h + 3]);
+        if (col < r) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(src + col));
+          v[0] += a.x;
+          v[1] += a.y;
+          v[2] += a.z;
+          v[3] += a.w;
+        }
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          if (col + u < r) dst[col + u] = acc[i][4 * h + u];
+          if (col + u < r) v[u] += __ldg(src + col + u);
       }
+    }
+    const int64_t orow = (int64_t)tile * kG + row;
+    if (orow >= p.n_out) continue;
+    float* dst = p.y + orow * r;
+    if (p.vec) {
+      if (col < r) *reinterpret_cast<float4*>(dst + col) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (col + u < r) dst[col + u] = v[u];
     }
   }
 }
@@ -340,8 +380,9 @@ extern "C" {
 
 // Launch the cell program on `stream`; returns the cudaError_t of the launch.
 int k2_cells(const float* W, const void* const* bufs, const int64_t* buf_rows,
-             int n_bufs, const int* ptr0, const int* ent0, const int* ptr1,
-             const int* ent1, float* y, int n_out, int r, void* stream) {
+             int n_bufs, const int* order, const int* gptr, const int* grp,
+             const int* ptr1, const int* ent1, float* y, int n_out, int r,
+             void* stream) {
   if (n_bufs < 1 || n_bufs > kMaxBufs || r < 1 || n_out < 1)
     return (int)cudaErrorInvalidValue;
   CellArgs p = {};
@@ -352,8 +393,9 @@ int k2_cells(const float* W, const void* const* bufs, const int64_t* buf_rows,
     p.buf_rows[i] = buf_rows[i];
     if (((uintptr_t)bufs[i] & 15) != 0) aligned = false;
   }
-  p.ptr0 = ptr0;
-  p.ent0 = reinterpret_cast<const int4*>(ent0);
+  p.order = order;
+  p.gptr = gptr;
+  p.grp = reinterpret_cast<const int4*>(grp);
   p.ptr1 = ptr1;
   p.ent1 = reinterpret_cast<const int4*>(ent1);
   p.y = y;

@@ -17,15 +17,20 @@ holding the host tiles followed by the device-made tiles (`dev_tiles`).
 What it re-derives for the card: in place of Hb-row output bands with a
 128-row overlap fold, empty-band fillers, SMEM segments, VMEM and output
 budgets, `dst // 8` storage and carry-last tile indices (:52-60,
-:199-205, :259-411), it builds one CSR list of *entries* per 128-row output
-tile. A cell whose `dst` is not a multiple of 128 straddles two tiles and
-enters both lists, each time with the row sub-range of its weight tile and
-its row offset inside the output tile. K2 (`csrc/k2_cell.cu`) runs one CTA
-per (output tile, 128-column tile) over that list, accumulates in
-registers in IEEE float32 and stores each tile once. Source rows past the
-end of a buffer read as zero and ragged columns are masked, so `apply`
-pads nothing (the TPU's `round_r` is gone) and gives the same result at
-any r.
+:199-205, :259-411), it builds per 128-row output tile a CSR list of
+*entries* (`_cell_tables`). A cell whose `dst` is not a multiple of 128
+straddles two tiles and enters both lists, each time with the row
+sub-range of its weight tile and its row offset inside the output tile.
+A matmul entry is trimmed to the nonzero extent of its weight tile (rows
+in groups of 8, depth in K2's K-chunks of 16; exact, since only zero
+products are left out) and dropped if it holds none. The entries of a
+tile that read one source block with disjoint rows are merged into
+*groups*, which K2 stages as one chunk, and the tiles are launched in
+order of decreasing work. K2 (`csrc/k2_cell.cu`) runs one CTA per (output
+tile, 128-column tile) over its tile's groups, sums in IEEE-level float32
+and stores each tile once. Source rows past the end of a buffer read as
+zero and ragged columns are masked, so `apply` pads nothing (the TPU's
+`round_r` is gone) and gives the same result at any r.
 
 `CellPlan.apply` launches K2 for CUDA tensors and runs `cells_plain`
 (gathered tiles, `torch.bmm` in IEEE float32, `index_add_`) for CPU
@@ -56,6 +61,14 @@ GM = 128  # output rows per cell
 GK = 128  # input rows per cell (= source block granularity)
 
 _MAX_BUFS = 4  # kMaxBufs of the kernel
+_KC = 16          # K2's K-chunk: the depth step of an entry
+_RG = 8           # K2's row step: entries start and end on 8-row groups
+_NRG = GM // _RG  # row groups of an output tile
+_GROUP_INTS = 4 + _NRG  # int32 of a group record (kGroupInts of the kernel)
+# what a staged K-chunk costs beyond its products (its copies and
+# barrier), in row groups of products: the rule that merges entries into
+# groups
+_CHUNK_COST_RG = 4
 # bytes of gathered tiles per `cells_plain` chunk
 _PLAIN_CHUNK_BYTES = 1 << 28
 
@@ -83,6 +96,8 @@ class _K2Kernel:
     """ctypes binding of `csrc/k2_cell.cu`. `launches` counts the kernel
     launches made through this wrapper; nothing else changes it."""
 
+    engine = "FFMA"  # the product engine compiled into K2 (IEEE float32)
+
     def __init__(self):
         self.launches = 0
         self._lib = None
@@ -92,7 +107,7 @@ class _K2Kernel:
         if self._lib is None:
             lib = load_kernel("k2_cell.cu")
             P, I = ctypes.c_void_p, ctypes.c_int
-            lib.k2_cells.argtypes = [P, P, P, I, P, P, P, P, P, I, I, P]
+            lib.k2_cells.argtypes = [P, P, P, I, P, P, P, P, P, P, I, I, P]
             lib.k2_cells.restype = I
             lib.k2_error_string.argtypes = [I]
             lib.k2_error_string.restype = ctypes.c_char_p
@@ -115,9 +130,10 @@ class _K2Kernel:
         stream = torch.cuda.current_stream(y.device).cuda_stream
         with torch.cuda.device(y.device):
             err = lib.k2_cells(
-                plan.W.data_ptr(), ptrs, rows, n, t["ptr0"].data_ptr(),
-                t["ent0"].data_ptr(), t["ptr1"].data_ptr(),
-                t["ent1"].data_ptr(), y.data_ptr(), plan.n_out, r, stream)
+                plan._Wt.data_ptr(), ptrs, rows, n, t["order"].data_ptr(),
+                t["gptr"].data_ptr(), t["grp"].data_ptr(),
+                t["ptr1"].data_ptr(), t["ent1"].data_ptr(), y.data_ptr(),
+                plan.n_out, r, stream)
         if err != 0:
             raise RuntimeButterflyError(
                 f"K2 launch failed: {lib.k2_error_string(err).decode()}")
@@ -268,11 +284,14 @@ class CellPlan:
                 wlist.append(np.asarray(c.w, np.float32))
         if not wlist and not dev_tiles:  # the kernel takes a weight pointer
             wlist.append(np.zeros((GM, GK), np.float32))
+        # K2 reads every tile k-major: the stack is kept transposed, and
+        # `W` is a view of it
         parts = []
         if wlist:
             parts.append(torch.from_numpy(np.stack(wlist)).to(device))
         parts += [s.to(device=device, dtype=torch.float32) for s in dev_tiles]
-        self.W = parts[0] if len(parts) == 1 else torch.cat(parts)
+        self._Wt = torch.cat([w.transpose(1, 2) for w in parts])
+        del parts
         dev_tiles.clear()  # free the pre-concat stacks
 
         blk_off = np.concatenate([[0], np.cumsum(self.buf_rows_pad)])[:-1]
@@ -285,18 +304,35 @@ class CellPlan:
         self._plain = {"widx0": dev(widx[k0]), "dst0": dev(dst[k0]),
                        "src0": dev(gsrc[k0]), "dst1": dev(dst[k1]),
                        "src1": dev(gsrc[k1])}
+        lo, hi, useful = _tile_extents(self.W)
+        tab = _cell_tables(self.n_out, dst, src_buf, src_blk, widx, kind,
+                           lo, hi)
+        # what K2 reads (an empty table still hands it a valid pointer)
         self._tables = {
-            name: dev(a) for name, a in zip(
-                ("ptr0", "ent0", "ptr1", "ent1"),
-                _entry_tables(self.n_out, dst[k0], src_buf[k0], src_blk[k0],
-                              widx[k0])
-                + _entry_tables(self.n_out, dst[k1], src_buf[k1],
-                                src_blk[k1], widx[k1]))}
+            name: dev(np.ascontiguousarray(
+                (a if a.size else np.full((1,) + a.shape[1:], -1))
+                .astype(np.int32)))
+            for name, a in tab.items()
+            if name in ("order", "gptr", "grp", "ptr1", "ent1")}
+        # the trimmed matmul entries, CSR per output tile (host numpy)
+        self.entries = (tab["ptr0"], tab["ent0"])
         self.num_cells = T
         self.num_matmul_cells = int(k0.sum())
+        # matmul entries: pieces of cells per output tile before trimming,
+        # entries left after it, and the groups K2 stages
+        self.num_entries = (tab["split"], tab["ent0"].shape[0])
+        self.num_groups = tab["grp"].shape[0]
+        self.tile_work = tab["work"]
         self._flops = 2 * GM * GK * self.num_matmul_cells
-        self._useful_flops = _useful_flops(self.W, widx[k0])
-        self._nbytes = self.W.numel() * 4
+        self._useful_flops = int(useful[widx[k0]].sum())
+        self._executed_flops = int(tab["work"].sum())
+        self._nbytes = self._Wt.numel() * 4
+
+    @property
+    def W(self) -> torch.Tensor:
+        """The weight stack (T, GM, GK), a view of the k-major copy that
+        K2 reads."""
+        return self._Wt.transpose(1, 2)
 
     def apply(self, bufs) -> torch.Tensor:
         """bufs: list of (rows_i, r) float32 tensors on the plan's device
@@ -313,8 +349,8 @@ class CellPlan:
         return cells_plain(self, list(bufs))
 
     def flops_per_col(self) -> int:
-        """Executed flops per column: every matmul cell as a full
-        (GM, GK) product, zero padding included."""
+        """Padded flops per column: every matmul cell as a full (GM, GK)
+        product, zero padding included."""
         return self._flops
 
     def useful_flops_per_col(self) -> int:
@@ -322,55 +358,183 @@ class CellPlan:
         2 * nonzero rows * nonzero columns of each matmul cell's tile."""
         return self._useful_flops
 
+    def executed_flops_per_col(self) -> int:
+        """Flops per column that K2 executes: each group's covered rows
+        times its depth, after trimming."""
+        return self._executed_flops
+
     def nbytes(self) -> int:
         return self._nbytes
 
 
-def _useful_flops(W: torch.Tensor, widx: np.ndarray) -> int:
-    """2 * sum over the cells' tiles W[widx] of (rows holding a nonzero) *
-    (columns holding a nonzero), counted in chunks of the weight stack."""
-    rows = torch.empty(W.shape[0], dtype=torch.int64, device=W.device)
-    cols = torch.empty_like(rows)
+def _tile_extents(W: torch.Tensor):
+    """One scan of the weight stack, in chunks, on its device. For every
+    tile and each of its 8-row groups, the extent [lo, hi) of the columns
+    holding a nonzero ((GK, 0) for a group of zeros), and the tile's useful
+    flops per column: 2 * (rows holding a nonzero) * (columns holding a
+    nonzero). Returns numpy arrays lo, hi (T, _NRG) and useful (T,)."""
+    T = W.shape[0]
+    lo = torch.empty((T, _NRG), dtype=torch.int64, device=W.device)
+    hi = torch.empty_like(lo)
+    useful = torch.empty(T, dtype=torch.int64, device=W.device)
+    ar = torch.arange(GK, device=W.device)
     step = 4096
-    for i in range(0, W.shape[0], step):
+    for i in range(0, T, step):
         nz = W[i:i + step] != 0
-        rows[i:i + step] = nz.any(2).sum(1)
-        cols[i:i + step] = nz.any(1).sum(1)
-    per_tile = (rows * cols).cpu().numpy()
-    return int(2 * per_tile[widx].sum())
+        useful[i:i + step] = 2 * nz.any(2).sum(1) * nz.any(1).sum(1)
+        g = nz.reshape(-1, _NRG, _RG, GK).any(2)
+        lo[i:i + step] = torch.where(g, ar, GK).amin(2)
+        hi[i:i + step] = torch.where(g, ar + 1, 0).amax(2)
+    return lo.cpu().numpy(), hi.cpu().numpy(), useful.cpu().numpy()
 
 
-def _entry_tables(n_out: int, dst, src_buf, src_blk, widx):
-    """CSR entry lists per 128-row output tile (K2's input).
-
-    Returns (ptr (n_tiles+1,) int32, ent (E, 4) int32). An entry is
-    (widx, src_buf, first source row, out_row0 | w_row0 << 8 | nrows << 16):
-    rows [out_row0, out_row0 + nrows) of the output tile take rows
-    [w_row0, w_row0 + nrows) of the cell's product. A cell with
-    dst % GM == off != 0 enters tile dst // GM with (off, 0, GM - off) and
-    the next tile with (0, GM - off, off)."""
+def _split(n_out: int, dst):
+    """The pieces of cells per 128-row output tile. A cell with
+    dst % GM == off != 0 enters tile dst // GM with rows [off, GM) taking
+    weight rows [0, GM - off), and the next tile with rows [0, off) taking
+    weight rows [GM - off, GM). Returns (cell index, tile, out_row0,
+    w_row0, nrows) of the pieces inside the output."""
     n_tiles = -(-n_out // GM)
     off = dst % GM
-    first = np.stack([dst // GM, off, np.zeros_like(off), GM - off], 1)
     s = off != 0
-    second = np.stack([dst[s] // GM + 1, np.zeros(s.sum(), np.int64),
-                       GM - off[s], off[s]], 1)
     idx = np.concatenate([np.arange(dst.size), np.flatnonzero(s)])
-    geo = np.concatenate([first, second])  # (tile, out_row0, w_row0, nrows)
-    keep = geo[:, 0] < n_tiles
-    idx, geo = idx[keep], geo[keep]
-    order = np.lexsort((src_blk[idx], src_buf[idx], geo[:, 0]))
-    idx, geo = idx[order], geo[order]
-    ent = np.stack([widx[idx], src_buf[idx], src_blk[idx] * GK,
-                    geo[:, 1] | (geo[:, 2] << 8) | (geo[:, 3] << 16)], 1)
-    check(ent.size == 0 or (ent[:, 0].max() < 2 ** 31
-                            and ent[:, 2].max() < 2 ** 31),
+    tile = np.concatenate([dst // GM, dst[s] // GM + 1])
+    o0 = np.concatenate([off, np.zeros(s.sum(), np.int64)])
+    w0 = np.concatenate([np.zeros_like(off), GM - off[s]])
+    nr = np.concatenate([GM - off, off[s]])
+    keep = tile < n_tiles
+    return idx[keep], tile[keep], o0[keep], w0[keep], nr[keep]
+
+
+def _trim(widx, w0, nr, lo, hi):
+    """Trim each matmul piece to the nonzero extent of its weight rows, in
+    8-row groups, and to the columns holding a nonzero in those rows, in
+    K2's K-chunks of _KC. Exact: only zero products are left out. Returns
+    (keep, rows cut from the top, nrows, k0, k1); a piece whose rows hold
+    no nonzero is not kept."""
+    g = np.arange(_NRG)
+    glo, ghi = lo[widx], hi[widx]
+    nz = ((g >= (w0 // _RG)[:, None]) & (g < ((w0 + nr) // _RG)[:, None])
+          & (glo < GK))
+    first = nz.argmax(1)
+    last = _NRG - 1 - nz[:, ::-1].argmax(1)
+    k0 = np.where(nz, glo, GK).min(1) // _KC * _KC
+    k1 = -(-np.where(nz, ghi, 0).max(1) // _KC) * _KC
+    return (nz.any(1), first * _RG - w0, (last + 1 - first) * _RG, k0, k1)
+
+
+def _group_ids(tile, src, row0, o0, nr, k0, k1) -> np.ndarray:
+    """Group the sorted entries of each output tile that K2 stages as one
+    chunk: consecutive entries of one source block with disjoint rows,
+    merged while the merged group's work (row groups x K-chunks, each chunk
+    also costing _CHUNK_COST_RG row groups of staging and barrier) is no
+    more than the two groups' apart. Returns the group index of each
+    entry."""
+    gid = np.empty(tile.size, np.int64)
+    g = -1
+    key = None
+    for e in range(tile.size):
+        rg, c0, c1 = nr[e] // _RG, k0[e] // _KC, k1[e] // _KC
+        if (key == (tile[e], src[e], row0[e]) and o0[e] >= end):
+            u0, u1 = min(g0, c0), max(g1, c1)
+            merged = (u1 - u0) * (_CHUNK_COST_RG + grg + rg)
+            apart = ((g1 - g0) * (_CHUNK_COST_RG + grg)
+                     + (c1 - c0) * (_CHUNK_COST_RG + rg))
+            if merged <= apart:
+                gid[e] = g
+                g0, g1, grg, end = u0, u1, grg + rg, o0[e] + nr[e]
+                continue
+        g += 1
+        gid[e] = g
+        key = (tile[e], src[e], row0[e])
+        g0, g1, grg, end = c0, c1, rg, o0[e] + nr[e]
+    return gid
+
+
+def _cell_tables(n_out: int, dst, src_buf, src_blk, widx, kind, lo, hi):
+    """K2's input: the cells cut into per-tile entries, the matmul entries
+    trimmed to their weight tiles' nonzero extent and grouped, and the
+    output tiles in order of decreasing work.
+
+    An entry is (widx, src_buf, first source row, out_row0 | w_row0 << 8 |
+    nrows << 16 | (k0 / _KC) << 24 | (k1 / _KC) << 27): rows [out_row0,
+    out_row0 + nrows) of its output tile take rows [w_row0, w_row0 + nrows)
+    of the product of the weight tile's columns [k0, k1) with the source
+    rows [first + k0, first + k1). A group (what K2 reads) is _GROUP_INTS
+    int32: (src_buf, first source row, k0 / _KC | (k1 / _KC) << 8, mask of
+    the row groups it covers, then per 8-row group of the output tile
+    widx * _NRG + the weight tile's row group, or -1).
+
+    Returns numpy arrays: ptr0/ent0 (the matmul entries' CSR per tile),
+    gptr/grp (the groups' CSR), ptr1/ent1 (plain adds, untrimmed, depth
+    [0, GK)), work (executed flops per column of each tile), order (tiles
+    by decreasing work, stable), and split (matmul pieces before
+    trimming)."""
+    n_tiles = -(-n_out // GM)
+    idx, tile, o0, w0, nr = _split(n_out, dst)
+    mm = kind[idx] == 0
+    k0 = np.zeros(idx.size, np.int64)
+    k1 = np.full(idx.size, GK, np.int64)
+    keep = np.ones(idx.size, bool)
+    if mm.any():
+        t_keep, cut, t_nr, t_k0, t_k1 = _trim(widx[idx[mm]], w0[mm], nr[mm],
+                                              lo, hi)
+        keep[mm] = t_keep
+        o0[mm] += cut
+        w0[mm] += cut
+        nr[mm], k0[mm], k1[mm] = t_nr, t_k0, t_k1
+    out = {"split": int(mm.sum())}
+
+    def csr(sel):
+        order = np.lexsort((o0[sel], src_blk[idx[sel]], src_buf[idx[sel]],
+                            tile[sel]))
+        s = np.flatnonzero(sel)[order]
+        ent = np.stack([widx[idx[s]], src_buf[idx[s]], src_blk[idx[s]] * GK,
+                        o0[s] | (w0[s] << 8) | (nr[s] << 16)
+                        | (k0[s] // _KC << 24) | (k1[s] // _KC << 27)], 1)
+        ptr = np.zeros(n_tiles + 1, np.int64)
+        np.cumsum(np.bincount(tile[s], minlength=n_tiles), out=ptr[1:])
+        return s, ptr, ent
+
+    s0, out["ptr0"], ent0 = csr(keep & mm)
+    _, out["ptr1"], out["ent1"] = csr(~mm)
+    check(ent0.size == 0 or (ent0[:, 0].max() < 2 ** 27
+                             and ent0[:, 2].max() < 2 ** 31),
           "cell tables exceed 32-bit indices", InvalidArgumentsError)
-    ptr = np.zeros(n_tiles + 1, np.int64)
-    np.cumsum(np.bincount(geo[:, 0], minlength=n_tiles), out=ptr[1:])
-    # an empty list still hands the kernel a valid pointer
-    ent = ent if ent.size else np.zeros((1, 4), np.int64)
-    return ptr.astype(np.int32), np.ascontiguousarray(ent.astype(np.int32))
+    out["ent0"] = ent0
+
+    gid = _group_ids(tile[s0], src_buf[idx[s0]], src_blk[idx[s0]], o0[s0],
+                     nr[s0], k0[s0], k1[s0])
+    G = int(gid.max()) + 1 if gid.size else 0
+    rgs = np.arange(_NRG)
+    lo_rg, hi_rg = o0[s0] // _RG, (o0[s0] + nr[s0]) // _RG
+    inside = (rgs >= lo_rg[:, None]) & (rgs < hi_rg[:, None])
+    slots = np.where(inside, widx[idx[s0]][:, None] * _NRG
+                     + (w0[s0] // _RG - lo_rg)[:, None] + rgs, -1)
+    grp = np.full((G, _GROUP_INTS), -1, np.int64)
+    np.maximum.at(grp[:, 4:], gid, slots)
+    first = np.unique(gid, return_index=True)[1]
+    c0 = np.full(G, _NRG, np.int64)
+    c1 = np.zeros(G, np.int64)
+    np.minimum.at(c0, gid, k0[s0] // _KC)
+    np.maximum.at(c1, gid, k1[s0] // _KC)
+    mask = np.zeros(G, np.int64)
+    np.bitwise_or.at(mask, gid, (inside.astype(np.int64) << rgs).sum(1))
+    rows = np.zeros(G, np.int64)
+    np.add.at(rows, gid, nr[s0])
+    grp[:, 0] = src_buf[idx[s0]][first]
+    grp[:, 1] = src_blk[idx[s0]][first] * GK
+    grp[:, 2] = c0 | (c1 << 8)
+    grp[:, 3] = mask
+    gtile = tile[s0][first]
+    gptr = np.zeros(n_tiles + 1, np.int64)
+    np.cumsum(np.bincount(gtile, minlength=n_tiles), out=gptr[1:])
+    gwork = 2 * rows * _KC * (c1 - c0)
+    out["work"] = np.bincount(gtile, weights=gwork,
+                              minlength=n_tiles).astype(np.int64)
+    out["order"] = np.argsort(-out["work"], kind="stable")
+    out["gptr"], out["grp"] = gptr, grp
+    return out
 
 
 def cells_from_dense_block(W, i0: int, j0: int, out_cells: list) -> None:

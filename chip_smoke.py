@@ -22,8 +22,11 @@ each printing its numbers on lines of their own:
      `cells_plain` on
      one and two buffers, plain-add cells, cells straddling two output
      tiles (dst mod 128 = 8 and 120) or running past the output, merged
-     cells, device-made weight tiles, r in {1, 36, 1000}, and a weight
-     stack of more than 2^31 bytes;
+     cells, device-made weight tiles, r in {1, 36, 1000}, tiles with zero
+     borders as a partition plan makes them (rank-80 V tiles, U tiles
+     with zero columns past rank 96; r in {1, 200}), a straddling cell
+     that is zero in one half and a tile whose only entry drops (r in {1,
+     36}), and a weight stack of more than 2^31 bytes;
   4. flagship: a random butterfly at full width (NB=1024 blocks of 128 rows,
      10 levels) applied in bf16 at r=2048 (WGMMA, 10 passes) and in IEEE
      f32 at r=256 (FFMA, the leaf alone and 10 passes), each also timed
@@ -46,8 +49,11 @@ each printing its numbers on lines of their own:
      Timed as the whole apply and as each K2 pass, beside the plain passes,
      one batched `torch.bmm` + `index_add_` per pass (library) and the
      materialized 8192 x 8192 float32 operator times x (dense). K2's bound
-     counts the useful flops (the tiles' zero padding left out); the bound
-     of the padded work it executes is printed beside it.
+     counts the useful flops (the tiles' zero padding left out); the
+     bounds of the work K2 executes after trimming and of the padded work
+     are printed beside it, and per pass K2's engine, its matmul entries
+     before and after trimming, its groups, the heaviest output tile's
+     work against the mean, and the executed flops.
 
 Each part of the main path (phases 4 and 5 through K1, phase 6 through K2)
 runs with the launch counts set to 0 just before and read just after.
@@ -329,6 +335,37 @@ def main() -> int:
             [Cell(0, 0, 0, tile()), Cell(120, 1, 1, ("dev", 0, 39)),
              Cell(248, 0, 2, ("dev", 0, 0)), Cell(256, 0, 1, ("dev", 1, 2))],
             100, dev_tiles=[stack, stack[:3] * 2])
+    # tiles with zero borders, as a partition plan makes them: V tiles of
+    # rank 80 (zero rows past 80), U tiles of rank 96 (zero columns past
+    # 96), a member window ending inside a tile
+    V = np.zeros((3, GM, GK), np.float32)
+    V[:, :80] = rng.standard_normal((3, 80, GK)) / 8
+    V[2, :, 44:] = 0.0
+    U = np.zeros((3, GM, GK), np.float32)
+    U[:, :, :96] = rng.standard_normal((3, GM, 96)) / 8
+    U[2, 44:] = 0.0
+    lr_cells = ([Cell(640, 0, c, ("dev", 0, c)) for c in range(3)]
+                + [Cell(256 + 128 * c + 40, 1, 5, ("dev", 1, c))
+                   for c in range(3)])
+    for r in (1, 200):
+        plan = k2_case("rank-80 V tiles, U tiles with zero columns", 768,
+                       [512, 768], lr_cells, r,
+                       dev_tiles=[torch.from_numpy(V).to(dev),
+                                  torch.from_numpy(U).to(dev)])
+        require(plan.executed_flops_per_col() < plan.flops_per_col(),
+                "K2: the zero borders were not trimmed")
+    # a straddling cell whose nonzero rows lie in one tile (one entry), and
+    # a tile whose only cell is zero (its entry drops; the tile stores 0)
+    top = np.zeros((GM, GK), np.float32)
+    top[:64] = tile()[:64]
+    bottom = np.zeros((GM, GK), np.float32)
+    bottom[70:] = tile()[70:]
+    for r in (1, 36):
+        plan = k2_case("straddling cells zero in one half, a tile whose "
+                       "entries all drop", 512, [384],
+                       [Cell(64, 0, 0, top), Cell(192, 0, 1, bottom),
+                        Cell(384, 0, 2, np.zeros((GM, GK), np.float32))], r)
+        require(plan.num_entries == (5, 2), "K2: entries not trimmed")
     # more than 32768 tiles: byte offsets past 2^31 must not wrap
     big = torch.zeros((33000, GM, GK), device=dev)
     far = list(range(32760, 33000, 7))
@@ -587,10 +624,27 @@ def main() -> int:
     # gives the bound of the work K2 executes
     flops_E = (c1.useful_flops_per_col() + c2.useful_flops_per_col()) * rE
     flops_pad_E = (c1.flops_per_col() + c2.flops_per_col()) * rE
+    flops_ex_E = (c1.executed_flops_per_col()
+                  + c2.executed_flops_per_col()) * rE
     bytes_E = (c1.nbytes() + c2.nbytes() + nbytes_of(xE) + nbytes_of(tK)
                + nbytes_of(yE))
     bE_ms, bE_by = bound_ms(flops_E, bytes_E, PEAK_F32)
     bE_pad_ms, bE_pad_by = bound_ms(flops_pad_E, bytes_E, PEAK_F32)
+    bE_ex_ms, bE_ex_by = bound_ms(flops_ex_E, bytes_E, PEAK_F32)
+    # what K2 executes per pass: its tables before and after the trim, the
+    # heaviest output tile against the mean (flops per column)
+    for i, c in enumerate((c1, c2)):
+        print(f"[6 helm2 partition] pass {i + 1}: K2 engine {K2.engine}; "
+              f"matmul entries {c.num_entries[0]} before trimming, "
+              f"{c.num_entries[1]} after, in {c.num_groups} groups; "
+              f"heaviest tile {int(c.tile_work.max())} flops/col against a "
+              f"mean of {c.tile_work.mean():.0f}; executed "
+              f"{c.executed_flops_per_col()} flops/col (useful "
+              f"{c.useful_flops_per_col()}, padded {c.flops_per_col()})",
+              flush=True)
+    print(f"[6 helm2 partition] K2 bound at 67 TFLOP/s: useful work "
+          f"{bE_ms:.4f} ms, executed work {bE_ex_ms:.4f} ms, padded work "
+          f"{bE_pad_ms:.4f} ms", flush=True)
     part = dict(
         shape=f"n={nE} k=60 leaf=32 r={rE} float32 (n2={pp.n2})",
         setup_fac_s=fac_s, setup_plan_s=plan_s,
@@ -603,11 +657,20 @@ def main() -> int:
         useful_flops_per_col_k2=[c1.useful_flops_per_col(),
                                  c2.useful_flops_per_col()],
         padded_flops_per_col_k2=[c1.flops_per_col(), c2.flops_per_col()],
+        executed_flops_per_col_k2=[c1.executed_flops_per_col(),
+                                   c2.executed_flops_per_col()],
+        entries_k2=[list(c1.num_entries), list(c2.num_entries)],
+        groups_k2=[c1.num_groups, c2.num_groups],
+        heaviest_tile_k2=[int(c1.tile_work.max()), int(c2.tile_work.max())],
+        mean_tile_k2=[float(c1.tile_work.mean()),
+                      float(c2.tile_work.mean())],
+        engine_k2=K2.engine,
         apply_ms=apply_ms, k2_pass_ms=[p1_ms, p2_ms], ms=p1_ms + p2_ms,
         tflops=pp.flops_per_col() * rE / apply_ms / 1e9,
         useful_tflops=pp.useful_flops_per_col() * rE / apply_ms / 1e9,
         bound_ms=bE_ms, bound_by=bE_by, bound_bytes=bytes_E,
         bound_ms_padded=bE_pad_ms, bound_by_padded=bE_pad_by,
+        bound_ms_executed=bE_ex_ms, bound_by_executed=bE_ex_by,
         plain_ms=plain_ms, library_ms=library_ms, dense_ms=dense_ms,
         rel_err_vs_op=rel_E, rel_err_plain_vs_op=rel_plain,
         rel_err_f64_eval_vs_op=rel_f64,

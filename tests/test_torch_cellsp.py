@@ -18,7 +18,7 @@ from butterfly_tpu.ops.cellsp import CellPlan as JaxCellPlan
 from butterfly_tpu.ops.cellsp import \
     cells_from_dense_block as jax_cells_from_dense_block
 from butterfly_tpu_torch.convert import cells_from_numpy
-from butterfly_tpu_torch.ops.cellsp import GK, GM, Cell, CellPlan, \
+from butterfly_tpu_torch.ops.cellsp import _KC, GK, GM, Cell, CellPlan, \
     cells_from_dense_block
 
 
@@ -36,27 +36,61 @@ def _dense_from_cells(cells, n_out, n_in, dev_tiles=()):
     return A[:n_out]
 
 
+def _source(bufs, src, row0):
+    """The GK source rows of a cell; rows past a buffer's end read as 0."""
+    X = np.zeros((GK, bufs[0].shape[1]))
+    b = bufs[src][row0:row0 + GK]
+    X[:b.shape[0]] = b
+    return X
+
+
 def _replay_tables(plan, bufs):
-    """y as K2 computes it from the plan's entry lists: per 128-row output
-    tile, every entry adds rows [w_row0, w_row0 + nrows) of its cell's
-    product to rows [out_row0, +nrows) of the tile; source rows past a
-    buffer's end read as zero."""
+    """y as K2 computes it from the plan's tables, in numpy, twice.
+
+    From the groups, as the kernel walks them: output tiles in the plan's
+    order; each group takes the source rows [row0 + k0, row0 + k1) once,
+    and every 8-row group of the tile that it covers adds the product of
+    the matching 8 rows of its weight tile, columns [k0, k1). From the
+    matmul entries: rows [out_row0, +nrows) of the tile add rows [w_row0,
+    +nrows) of the entry's product over its own depth [k0, k1). Plain adds
+    go into both. Returns (y from the groups, y from the entries, flops per
+    column of the groups)."""
     t = {k: v.numpy() for k, v in plan._tables.items()}
+    t["ptr0"], t["ent0"] = plan.entries
     W = plan.W.numpy().astype(np.float64)
     r = bufs[0].shape[1]
     n_tiles = -(-plan.n_out // GM)
-    y = np.zeros((n_tiles * GM, r))
-    for kind in (0, 1):
-        ptr, ent = t[f"ptr{kind}"], t[f"ent{kind}"]
-        for tile in range(n_tiles):
-            for widx, src, row0, packed in ent[ptr[tile]:ptr[tile + 1]]:
-                o0, w0, nr = packed & 0xFF, (packed >> 8) & 0xFF, packed >> 16
-                X = np.zeros((GK, r))
-                b = bufs[src][row0:row0 + GK]
-                X[:b.shape[0]] = b
-                P = X if kind else W[widx] @ X
-                y[tile * GM + o0:tile * GM + o0 + nr] += P[w0:w0 + nr]
-    return y[:plan.n_out]
+    assert sorted(t["order"]) == list(range(n_tiles))
+    yg = np.zeros((n_tiles * GM, r))
+    ye = np.zeros((n_tiles * GM, r))
+    flops = 0
+    for tile in t["order"]:
+        for g in t["grp"][t["gptr"][tile]:t["gptr"][tile + 1]]:
+            src, row0, kc, mask = g[:4]
+            k0, k1 = (kc & 0xFF) * _KC, (kc >> 8) * _KC
+            assert 0 <= k0 < k1 <= GK
+            X = _source(bufs, src, row0)
+            for rg in range(GM // 8):
+                slot = g[4 + rg]
+                assert (slot >= 0) == bool(mask >> rg & 1)
+                if slot >= 0:
+                    w, wrg = divmod(int(slot), GM // 8)
+                    rows = slice(tile * GM + 8 * rg, tile * GM + 8 * rg + 8)
+                    yg[rows] += W[w][8 * wrg:8 * wrg + 8, k0:k1] @ X[k0:k1]
+                    flops += 2 * 8 * (k1 - k0)
+        for kind in (0, 1):
+            ptr, ent = t[f"ptr{kind}"], t[f"ent{kind}"]
+            for widx, src, row0, p in ent[ptr[tile]:ptr[tile + 1]]:
+                o0, w0, nr = p & 0xFF, (p >> 8) & 0xFF, (p >> 16) & 0xFF
+                k0, k1 = (p >> 24 & 7) * _KC, (p >> 27 & 15) * _KC
+                X = _source(bufs, src, row0)
+                rows = slice(tile * GM + o0, tile * GM + o0 + nr)
+                if kind:
+                    yg[rows] += X[w0:w0 + nr]
+                    ye[rows] += X[w0:w0 + nr]
+                else:
+                    ye[rows] += W[widx][w0:w0 + nr, k0:k1] @ X[k0:k1]
+    return yg[:plan.n_out], ye[:plan.n_out], flops
 
 
 def _random_blocks(rng, n_out, n_in, count, lo, hi, span, make):
@@ -128,7 +162,8 @@ def test_cell_plan_matches_jax(case, monkeypatch):
     assert got.shape == (n_out, r) and got.dtype == torch.float32
     scale = np.linalg.norm(want)
     assert np.linalg.norm(got.double().numpy() - want) <= 1e-5 * scale
-    assert np.linalg.norm(_replay_tables(plan, bufs) - want) <= 1e-5 * scale
+    for y in _replay_tables(plan, bufs)[:2]:
+        assert np.linalg.norm(y - want) <= 1e-5 * scale
 
 
 def test_cells_from_dense_block_match_jax():
@@ -173,7 +208,8 @@ def test_straddling_and_ragged_cells_match_dense(r):
     got = plan.apply([torch.from_numpy(b) for b in bufs]).double().numpy()
     scale = np.linalg.norm(want)
     assert np.linalg.norm(got - want) <= 1e-5 * scale
-    assert np.linalg.norm(_replay_tables(plan, bufs) - want) <= 1e-5 * scale
+    for y in _replay_tables(plan, bufs)[:2]:
+        assert np.linalg.norm(y - want) <= 1e-5 * scale
     # a buffer shorter than its declared rows reads as zero-padded
     short = [bufs[0], bufs[1][:200]]
     X[512 + 200:] = 0.0
@@ -214,3 +250,119 @@ def test_cell_plan_rejects_bad_cells_and_buffers():
         plan.apply([torch.zeros((300, 4))])  # more rows than declared
     with pytest.raises(InvalidArgumentsError):
         plan.apply([torch.zeros((256, 4), dtype=torch.float64)])
+
+
+def _rank_padded_cells(rng):
+    """Dense blocks at sub-8 and sub-128 row and column shifts, and the
+    low-rank tiles of one member at rank 80 (V: zero rows past 80) and 96
+    (U: zero columns past 96), as a partition plan makes them; the member
+    window's rows past 300 are zero too."""
+    cells = []
+    for i0, j0, nr, nc in ((2, 6, 70, 150), (134, 250, 200, 40),
+                           (388, 0, 9, 300), (517, 131, 120, 64)):
+        cells_from_dense_block(rng.standard_normal((nr, nc)) / 8, i0, j0,
+                               cells)
+    V = np.zeros((3, GM, GK), np.float32)
+    V[:, :80] = rng.standard_normal((3, 80, GK)) / 8
+    V[2, :, 44:] = 0.0  # the window ends at column 300 = 2 * 128 + 44
+    U = np.zeros((3, GM, GK), np.float32)
+    U[:, :, :96] = rng.standard_normal((3, GM, 96)) / 8
+    U[2, 44:] = 0.0  # and at row 300
+    cells += [Cell(640, 0, c, ("dev", 0, c)) for c in range(3)]
+    cells += [Cell(256 + 128 * c + 40, 1, 5, ("dev", 1, c))
+              for c in range(3)]
+    return cells, [torch.from_numpy(V), torch.from_numpy(U)]
+
+
+@pytest.mark.parametrize("r", [1, 37])
+def test_trimmed_tables_replay_dense(r):
+    """Tiles with zero borders (block shifts, rank padding, window padding)
+    replay to the dense product from the trimmed tables, and the trim cut
+    work: fewer rows and depths than the padded tiles."""
+    rng = np.random.default_rng(4)
+    cells, dev = _rank_padded_cells(rng)
+    n_out, buf_rows = 768, [512, 768]
+    plan = CellPlan(n_out, buf_rows, cells, dev_tiles=list(dev),
+                    device="cpu")
+    bufs = [rng.standard_normal((b, r)).astype(np.float32)
+            for b in buf_rows]
+    X = np.concatenate(bufs)
+    shifted = [Cell(c.dst, 0, c.src_blk + 4 * c.src_buf, c.w) for c in cells]
+    want = _dense_from_cells(shifted, n_out, X.shape[0],
+                             [d.numpy() for d in dev]) @ X
+    scale = np.linalg.norm(want)
+    yg, ye, _ = _replay_tables(plan, bufs)
+    assert np.linalg.norm(yg - want) <= 1e-5 * scale
+    assert np.linalg.norm(ye - want) <= 1e-5 * scale
+    got = plan.apply([torch.from_numpy(b) for b in bufs]).double().numpy()
+    assert np.linalg.norm(got - want) <= 1e-5 * scale
+    ent = plan.entries[1]
+    nrows, k0 = (ent[:, 3] >> 16) & 0xFF, (ent[:, 3] >> 24 & 7) * _KC
+    k1 = (ent[:, 3] >> 27 & 15) * _KC
+    assert (nrows % 8 == 0).all() and (k0 % _KC == 0).all()
+    assert (nrows < GM).any() and ((k1 - k0) < GK).any()
+    assert plan.executed_flops_per_col() < plan.flops_per_col()
+
+
+def test_straddling_cell_zero_in_one_half_is_one_entry():
+    """A cell at dst % 128 == 64 whose nonzero rows all lie in one output
+    tile yields one entry, not two; a cell of zeros yields none, and its
+    tile is stored as zeros."""
+    rng = np.random.default_rng(5)
+    top = np.zeros((GM, GK), np.float32)
+    top[:64] = rng.standard_normal((64, GK))  # all in tile 0
+    bottom = np.zeros((GM, GK), np.float32)
+    bottom[70:] = rng.standard_normal((58, GK))  # all in tile 2
+    cells = [Cell(64, 0, 0, top), Cell(192, 0, 1, bottom),
+             Cell(384, 0, 2, np.zeros((GM, GK), np.float32))]
+    plan = CellPlan(512, [384], cells, device="cpu")
+    assert plan.num_entries == (5, 2)
+    assert list(np.diff(plan.entries[0])) == [1, 0, 1, 0]
+    assert list(np.diff(plan._tables["gptr"].numpy())) == [1, 0, 1, 0]
+    assert plan.tile_work[1] == plan.tile_work[3] == 0
+    bufs = [rng.standard_normal((384, 5)).astype(np.float32)]
+    want = _dense_from_cells(cells, 512, 384) @ bufs[0]
+    yg, ye, _ = _replay_tables(plan, bufs)
+    np.testing.assert_allclose(yg, want, rtol=0, atol=1e-9 * abs(want).max())
+    np.testing.assert_allclose(ye, want, rtol=0, atol=1e-9 * abs(want).max())
+    assert not want[384:].any()
+
+
+def test_tile_order_and_groups():
+    """The launch order is a permutation of all (tile, column tile) pairs
+    with non-increasing trimmed work; a dense block's two pieces in one
+    tile (same source block, disjoint rows) are staged as one group."""
+    rng = np.random.default_rng(6)
+    cells, dev = _rank_padded_cells(rng)
+    plan = CellPlan(768, [512, 768], cells, dev_tiles=list(dev),
+                    device="cpu")
+    order = plan._tables["order"].numpy()
+    work = plan.tile_work
+    n_rtiles = 3  # r = 300
+    pairs = [(order[b // n_rtiles], b % n_rtiles)
+             for b in range(order.size * n_rtiles)]
+    assert sorted(pairs) == [(t, c) for t in range(6)
+                             for c in range(n_rtiles)]
+    assert (np.diff(work[order]) <= 0).all()
+    assert plan.num_groups < plan.num_entries[1]
+    one = []
+    cells_from_dense_block(rng.standard_normal((128, 128)), 64, 0, one)
+    cells_from_dense_block(rng.standard_normal((128, 128)), 192, 0, one)
+    plan = CellPlan(384, [128], one, device="cpu")
+    assert plan.num_entries == (4, 4)
+    assert list(np.diff(plan._tables["gptr"].numpy())) == [1, 1, 1]
+
+
+def test_executed_flops_match_the_replay():
+    """executed_flops_per_col() is the replay's own count and lies between
+    the useful and the padded flops."""
+    rng = np.random.default_rng(7)
+    cells, dev = _rank_padded_cells(rng)
+    plan = CellPlan(768, [512, 768], cells, dev_tiles=list(dev),
+                    device="cpu")
+    bufs = [np.zeros((512, 1), np.float32), np.zeros((768, 1), np.float32)]
+    flops = _replay_tables(plan, bufs)[2]
+    assert plan.executed_flops_per_col() == flops
+    assert (plan.useful_flops_per_col() <= flops
+            < plan.flops_per_col())
+    assert plan.tile_work.sum() == flops
