@@ -6,7 +6,8 @@ functions take those parameters as numpy arrays — e.g. `np.asarray` of a
 JAX `UniformButterfly`'s factors — and build the port's objects, so that a
 test can hand both packages the same operator. `linop_from_numpy` rebuilds
 a host `LinOp` tree (such as a multilevel Helmholtz factorization) and
-`cells_from_numpy` a list of cells. Nothing here imports JAX or the JAX
+`cells_from_numpy` a list of cells, `fast_direct_solver_from_numpy` a
+hierarchical-LU factorization. Nothing here imports JAX or the JAX
 package: the JAX objects are read by class name and fields.
 """
 
@@ -17,6 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from butterfly_tpu_torch.fac import solver as S
 from butterfly_tpu_torch.fac.distill import DistilledButterfly
 from butterfly_tpu_torch.ops import linop as L
 from butterfly_tpu_torch.ops.butterfly import UniformButterfly
@@ -24,7 +26,8 @@ from butterfly_tpu_torch.ops.cellsp import Cell
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
 
-__all__ = ["cells_from_numpy", "distilled_from_numpy", "linop_from_numpy",
+__all__ = ["cells_from_numpy", "distilled_from_numpy",
+           "fast_direct_solver_from_numpy", "linop_from_numpy",
            "uniform_butterfly_from_numpy"]
 
 
@@ -119,4 +122,36 @@ def cells_from_numpy(cells) -> list[Cell]:
         if w is not None and not isinstance(w, tuple):
             w = np.asarray(w, np.float32)
         out.append(Cell(int(c.dst), int(c.src_buf), int(c.src_blk), w))
+    return out
+
+
+def fast_direct_solver_from_numpy(fds) -> S.FastDirectSolver:
+    """The port's `FastDirectSolver` for a JAX-package one: the same node
+    tree, the leaves' LU factors and pivots as numpy arrays, each node's
+    A12/A21 carried with `linop_from_numpy` (a sampled operator as its
+    stored LinOp, without the build-time cache). Nothing is factorized
+    again."""
+
+    def node(nd):
+        name = type(nd).__name__
+        if name == "_DenseLU":
+            leaf = S._DenseLU.__new__(S._DenseLU)
+            leaf._lu = tuple(np.array(a) for a in nd._lu)
+            leaf.shape = tuple(nd.shape)
+            return leaf
+        if name != "_HlNode":
+            raise InvalidArgumentsError(f"cannot carry a {name} across")
+        return S._HlNode(int(nd.m), node(nd.lu1), node(nd.lu2),
+                         offdiag(nd.A12), offdiag(nd.A21))
+
+    def offdiag(op):
+        if type(op).__name__ == "_SampledOp":
+            return S._SampledOp(linop_from_numpy(op.op), None)
+        return linop_from_numpy(op)
+
+    out = S.FastDirectSolver.__new__(S.FastDirectSolver)
+    # the build settings (tol, base_size, rank, cutoff, split bounds, ...)
+    # are plain Python values
+    out.__dict__.update({k: v for k, v in vars(fds).items() if k != "_root"})
+    out._root = node(fds._root)
     return out

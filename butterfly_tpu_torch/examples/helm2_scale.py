@@ -1,0 +1,204 @@
+"""Large-N Helmholtz butterfly on the card: setup cost, apply, GMRES solve.
+
+Twin of the JAX package's `examples/helm2_scale.py`. It factorizes the 2D
+Helmholtz combined-field operator D - ikS on an ellipse (1, 0.7, rotated
+0.3) at n points with points-per-wavelength held fixed (k grows with n),
+compiles it into the two-pass cell program (`partition_apply_plan`, kernel
+K2 on the card), checks the apply against a row-sampled dense oracle
+(`utils/oracle.py`: no dense operator exists at these sizes), and solves
+the second-kind BIE with `solve_gmres_plan` (Krylov basis on the card, one
+Hessenberg column to the host per iteration), so the solve takes about
+iterations x apply.
+
+Usage:
+  python -m butterfly_tpu_torch.examples.helm2_scale --sizes 16384
+
+Each size prints one JSON row with the JAX script's keys, except
+`mega_streamed_mb` (the port streams no weights from the host), plus
+`apply_ms_r1` (the apply at one column, the shape GMRES runs),
+`gmres_ms_per_iter`, `gmres_residuals` (the relative residual history,
+the true final residual last) and `gmres_k2_launches`. Times are medians of CUDA-event
+timings on the card; where the plan lies on the CPU, they are None (not
+measured). `run_one` = `measure(setup(...))`; `chip_smoke.py` calls the two
+halves itself to check K2 on the plan in between.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from butterfly_tpu_torch.fac import helm2 as fac_helm2
+from butterfly_tpu_torch.fac.partition import (
+    PartitionPlan,
+    partition_apply_plan,
+)
+from butterfly_tpu_torch.geom import Ellipse
+from butterfly_tpu_torch.ops.cellsp import K2
+from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
+from butterfly_tpu_torch.ops.linalg import solve_gmres_plan
+from butterfly_tpu_torch.trees import Quadtree
+from butterfly_tpu_torch.utils.device import resolve_device
+from butterfly_tpu_torch.utils.oracle import row_oracle_rel_err
+from butterfly_tpu_torch.utils.timer import device_time
+
+# GMRES settings of the JAX script (examples/helm2_scale.py:156-157)
+GMRES_TOL, GMRES_RESTART, GMRES_MAX_ITER = 3e-7, 80, 300
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+@dataclasses.dataclass
+class Helm2Scale:
+    """One size's problem: the operator's kernel, the points and normals
+    in tree order, the quadrature weights (interleaved, on the plan's
+    device), the compiled plan, and the row built so far."""
+
+    helm: Helm2
+    k: float
+    Xp: np.ndarray
+    Np: np.ndarray
+    wp2: torch.Tensor
+    plan: PartitionPlan
+    rec: dict
+
+    def sys_apply(self, v: torch.Tensor) -> torch.Tensor:
+        """The BIE system (I/2 + K W) v in the interleaved real embedding,
+        W the quadrature weights."""
+        return 0.5 * v + self.plan.apply((v * self.wp2)[:, None])[:, 0]
+
+    def rhs(self) -> torch.Tensor:
+        """Interleaved single-layer field of an interior source at
+        (0.1, -0.05): the reference flagship's right-hand side
+        (examples/simple/helm2_bie.c:162-175)."""
+        x_src = np.array([[0.1, -0.05]])
+        u = Helm2(k=self.k, layer_pot=LayerPot.SINGLE).kernel_matrix(
+            x_src, self.Xp)[:, 0]
+        b2 = np.empty(2 * u.size, np.float32)
+        b2[0::2], b2[1::2] = u.real, u.imag
+        return torch.from_numpy(b2).to(self.plan.device)
+
+
+def setup(n: int, ppw: float, leaf: int, device=None) -> Helm2Scale:
+    """Factorize on the host (float64) and compile the plan on `device`
+    (default: the card)."""
+    device = resolve_device(device)
+    ell = Ellipse(1.0, 0.7, (0.0, 0.0), 0.3)
+    X, _, Nrm, w = ell.sample_linspaced(n)
+    perimeter = float(np.sum(w))
+    k = 2 * np.pi * n / (ppw * perimeter)
+    # exterior-Dirichlet combined field D - i*k*S: resonance-free, so
+    # GMRES converges at every wavenumber
+    helm = Helm2(k=k, layer_pot=LayerPot.COMBINED_FIELD,
+                 alpha=-1j * k, beta=1.0)
+    rec = {"n": n, "k": round(k, 1), "ppw": ppw}
+    log(f"n={n}: k={k:.1f} (ppw={ppw})")
+
+    t0 = time.perf_counter()
+    tree = Quadtree(X, leaf_size=leaf, normals=Nrm)
+    A = fac_helm2.make_multilevel(helm, tree, tree)
+    rec["setup_fac_s"] = time.perf_counter() - t0
+    log(f"  fac setup: {rec['setup_fac_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    plan = partition_apply_plan(A, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    rec["setup_plan_s"] = time.perf_counter() - t0
+    rec["weights_mb"] = plan.nbytes() / 1e6
+    rec["dense_mb"] = n * n * 16 / 1e6
+    rec["compression_ratio"] = plan.nbytes() / (n * n * 16)
+    rec["num_mega_blocks"] = len(plan._mega)
+    log(f"  plan: {rec['setup_plan_s']:.1f} s, {rec['weights_mb']:.1f} MB "
+        f"({rec['compression_ratio']:.4f} of dense c128)")
+    wp2 = torch.as_tensor(np.repeat(w[tree.perm], 2), dtype=torch.float32,
+                          device=device)
+    return Helm2Scale(helm, k, X[tree.perm], Nrm[tree.perm], wp2, plan, rec)
+
+
+def measure(prob: Helm2Scale, queries: int = 64) -> dict:
+    """Time the apply (on the card), check it against the 128-row oracle
+    and solve the BIE; returns the finished row."""
+    plan, rec, n = prob.plan, prob.rec, prob.plan.shape[0]
+    dev = plan.device
+    on_card = dev.type == "cuda"
+
+    # ---- apply time at r = queries and at r = 1 (GMRES's shape) ---------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for key, r in (("apply_ms", queries), ("apply_ms_r1", 1)):
+        x0 = torch.randn((plan.n2, r), generator=gen, device=dev)
+        rec[key] = (1e3 * device_time(lambda: plan.apply(x0), warmup=2,
+                                      iters=20) if on_card else None)
+    rec["apply_tflops"] = (plan.flops_per_col() * queries / rec["apply_ms"]
+                           / 1e9 if on_card else None)
+    log(f"  apply r={queries}: {rec['apply_ms']} ms, r=1: "
+        f"{rec['apply_ms_r1']} ms")
+
+    # ---- accuracy vs the row-sampled dense oracle -----------------------
+    rng = np.random.default_rng(0)
+    zs = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    got = plan.apply_complex(zs)
+
+    def exact_rows(rows):
+        return prob.helm.kernel_matrix(prob.Xp, prob.Xp[rows], prob.Np,
+                                       None) @ zs
+
+    rel, _ = row_oracle_rel_err(got, exact_rows, n, num_rows=128)
+    rec["rel_err_vs_dense"] = rel
+    log(f"  rel err vs dense (128-row oracle): {rel:.3e}")
+
+    # ---- GMRES on the second-kind BIE -----------------------------------
+    b2 = prob.rhs()
+    launches = K2.launches
+    t0 = time.perf_counter()
+    res = solve_gmres_plan(prob.sys_apply, b2, tol=GMRES_TOL,
+                           restart=GMRES_RESTART, max_iter=GMRES_MAX_ITER)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    rec["gmres_s"] = time.perf_counter() - t0
+    rec["gmres_iters"] = int(res.num_iter)
+    rec["gmres_ms_per_iter"] = 1e3 * rec["gmres_s"] / max(res.num_iter, 1)
+    rec["gmres_rel_res"] = res.residuals[-1]
+    rec["gmres_residuals"] = res.residuals
+    rec["gmres_converged"] = bool(res.converged)
+    rec["gmres_k2_launches"] = K2.launches - launches
+    log(f"  GMRES: {res.num_iter} iters, rel res {res.residuals[-1]:.2e}, "
+        f"{rec['gmres_s']:.2f} s")
+    rec["device"] = torch.cuda.get_device_name(dev) if on_card else str(dev)
+    return rec
+
+
+def run_one(n: int, ppw: float, leaf: int, queries: int = 64,
+            device=None) -> dict:
+    """One size end to end on `device` (default: the card)."""
+    return measure(setup(n, ppw, leaf, device=device), queries)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sizes", type=int, nargs="+", default=[16384])
+    ap.add_argument("--ppw", type=float, default=64.0)
+    ap.add_argument("--leaf", type=int, default=64)
+    ap.add_argument("--queries", type=int, default=64)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    rows = []
+    for n in args.sizes:
+        rows.append(run_one(n, args.ppw, args.leaf, queries=args.queries))
+        print(json.dumps(rows[-1]), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(rows, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

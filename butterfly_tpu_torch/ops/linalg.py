@@ -1,0 +1,417 @@
+"""Iterative solvers: restarted GMRES on the host and on the device.
+
+Port counterpart of `butterfly_tpu/ops/linalg.py:47-449` (reference:
+bfSolveGMRES, src/linalg.c:47-317):
+
+- `solve_gmres`         host GMRES, numpy: modified Gram-Schmidt, Givens
+                        least squares, multi-RHS, GMRES(m) restarts. A plain
+                        copy of the JAX package's.
+- `solve_gmres_device`  the whole restart cycle on the device: CGS2 against
+                        the basis, the rotations applied in order, a
+                        fixed-length back substitution. The JAX package runs
+                        it in one `lax.while_loop`; here a Python loop over
+                        cycles reads the residual to the host once a cycle.
+- `solve_gmres_plan`    the Krylov basis on the device, the Givens
+                        recurrence on the host in float64; one Hessenberg
+                        column comes to the host per iteration. The operator
+                        may be any Python callable on device tensors, e.g. a
+                        `PartitionPlan.apply`: this is the large-N Helmholtz
+                        BIE solve (`examples/helm2_scale.py`).
+
+Every product with the basis runs in IEEE float32 (no TF32, see
+`ops/butterfly.py::_f32_precision`): a TF32 basis cannot reach the 3e-7
+tolerance of the BIE solve. These are plain matrix-vector products, which
+the JAX package also computes outside any Pallas kernel.
+
+A tensor right-hand side keeps its device; a numpy one goes to `device`
+(default: the card). The eigensolvers of the JAX module wait for the
+device-eigensolver slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from butterfly_tpu_torch.ops.butterfly import _f32_precision
+from butterfly_tpu_torch.utils.device import resolve_device
+from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
+from butterfly_tpu_torch.utils.logging import log_debug, log_info
+
+__all__ = [
+    "GmresResult",
+    "solve_gmres",
+    "solve_gmres_device",
+    "solve_gmres_plan",
+]
+
+
+@dataclasses.dataclass
+class GmresResult:
+    x: np.ndarray
+    num_iter: int
+    residuals: list[float]
+    converged: bool
+
+
+def _as_matop(A) -> Callable[[np.ndarray], np.ndarray]:
+    """(n, k) -> (m, k) apply for arrays, LinOps, plans, or callables.
+
+    Plain callables keep their historical PER-VECTOR contract (they are
+    applied column by column); pass an object with `.matmat` (LinOp,
+    StagePlan, ndarray) to get genuinely batched multi-RHS applies."""
+    if hasattr(A, "matmat"):
+        return lambda V: np.asarray(A.matmat(V))
+    if callable(A) and not hasattr(A, "matvec"):
+        def apply(V):
+            cols = [np.asarray(A(V[:, j])) for j in range(V.shape[1])]
+            return np.stack(cols, axis=1)
+
+        return apply
+    if hasattr(A, "matvec"):
+        def apply_mv(V):
+            cols = [np.asarray(A.matvec(V[:, j])) for j in range(V.shape[1])]
+            return np.stack(cols, axis=1)
+
+        return apply_mv
+    return lambda V: np.asarray(A @ V)
+
+
+def _gmres_cycle(matop, prec, X, B, m, tol, bnorm):
+    """One batched restart cycle of length m on all RHS columns.
+
+    Returns (X_new, residual_history, converged_mask). Batched over the k
+    columns: V (m+1, n, k), H (m+1, m, k); converged columns keep iterating
+    harmlessly behind division guards."""
+    n, k = B.shape
+    R = prec(B - matop(X))
+    beta = np.linalg.norm(R, axis=0)  # (k,)
+    dtype = np.result_type(B.dtype, R.dtype, np.float64)
+    V = np.zeros((m + 1, n, k), dtype=dtype)
+    H = np.zeros((m + 1, m, k), dtype=dtype)
+    cs = np.zeros((m, k), dtype=dtype)
+    sn = np.zeros((m, k), dtype=dtype)
+    g = np.zeros((m + 1, k), dtype=dtype)
+    safe_beta = np.where(beta > 0, beta, 1.0)
+    V[0] = R / safe_beta
+    g[0] = beta
+    history = [np.abs(beta) / bnorm]
+    j_used = 0
+    for j in range(m):
+        W = prec(matop(V[j]))
+        # batched modified Gram-Schmidt (reference: src/linalg.c:154-193)
+        for i in range(j + 1):
+            hij = np.einsum("nk,nk->k", np.conj(V[i]), W)
+            H[i, j] = hij
+            W = W - hij[None, :] * V[i]
+        h = np.linalg.norm(W, axis=0)
+        H[j + 1, j] = h
+        V[j + 1] = np.where(h > 0, W / np.where(h > 0, h, 1.0), 0.0)
+        # accumulated Givens rotations on the new column
+        for i in range(j):
+            t = cs[i] * H[i, j] + sn[i] * H[i + 1, j]
+            H[i + 1, j] = -np.conj(sn[i]) * H[i, j] + cs[i] * H[i + 1, j]
+            H[i, j] = t
+        a, bb = H[j, j], H[j + 1, j]
+        denom = np.sqrt(np.abs(a) ** 2 + np.abs(bb) ** 2)
+        safe_d = np.where(denom > 0, denom, 1.0)
+        phase = np.where(np.abs(a) > 0,
+                         a / np.where(np.abs(a) > 0, np.abs(a), 1.0), 1.0)
+        cs[j] = np.where(denom > 0, np.abs(a) / safe_d, 1.0)
+        sn[j] = np.where(denom > 0, phase * np.conj(bb) / safe_d, 0.0)
+        H[j, j] = cs[j] * H[j, j] + sn[j] * H[j + 1, j]
+        H[j + 1, j] = 0.0
+        g[j + 1] = -np.conj(sn[j]) * g[j]
+        g[j] = cs[j] * g[j]
+        res = np.abs(g[j + 1]) / bnorm
+        history.append(res)
+        j_used = j + 1
+        if np.all(res < tol):
+            break
+    # batched back substitution
+    j = j_used
+    y = np.zeros((j, k), dtype=dtype)
+    for i in range(j - 1, -1, -1):
+        num = g[i] - np.einsum("mk,mk->k", H[i, i + 1 : j], y[i + 1 :])
+        y[i] = num / np.where(np.abs(H[i, i]) > 0, H[i, i], 1.0)
+    X = X + np.einsum("mnk,mk->nk", V[:j], y)
+    return X, history, history[-1] < tol
+
+
+def solve_gmres(
+    A,
+    b: np.ndarray,
+    tol: float = 1e-10,
+    max_iter: int | None = None,
+    M=None,
+    x0: np.ndarray | None = None,
+    restart: int | None = None,
+) -> GmresResult:
+    """Left-preconditioned restarted GMRES with modified Gram-Schmidt +
+    Givens least-squares, MULTI-RHS (reference: bfSolveGMRES,
+    src/linalg.c:47-317). All RHS columns iterate together as batched
+    vector ops — one matop per iteration regardless of k.
+
+    A and M may be LinOps, packed plans, arrays, or callables. b may be
+    (n,) or (n, k). `restart` enables GMRES(m) cycles (default: one full
+    cycle of max_iter steps, the reference's behavior).
+    """
+    matop = _as_matop(A)
+    prec = _as_matop(M) if M is not None else (lambda V: V)
+    b = np.asarray(b)
+    was_vec = b.ndim == 1
+    B = b[:, None] if was_vec else b
+    check(B.ndim == 2, "b must be (n,) or (n, k)", InvalidArgumentsError)
+    n, k = B.shape
+    if max_iter is None:
+        max_iter = min(n, 256)
+    m = restart if restart is not None else max_iter
+
+    X = np.zeros_like(B) if x0 is None else (
+        x0[:, None] if x0.ndim == 1 else x0
+    ).astype(B.dtype, copy=True)
+    bnorm = np.linalg.norm(prec(B), axis=0)
+    if np.all(bnorm == 0):
+        x = X[:, 0] if was_vec else X
+        return GmresResult(x, 0, [0.0], True)
+    bnorm = np.where(bnorm > 0, bnorm, 1.0)
+
+    residuals: list[float] = []
+    total = 0
+    converged = np.zeros(k, dtype=bool)
+    while total < max_iter:
+        steps = min(m, max_iter - total)
+        X, hist, converged = _gmres_cycle(matop, prec, X, B, steps, tol, bnorm)
+        residuals.extend(float(np.max(h)) for h in hist[1:])
+        total += len(hist) - 1
+        if np.all(converged):
+            break
+    log_debug("gmres: %d iters (k=%d rhs), final rel res %.3e",
+              total, k, residuals[-1] if residuals else 0.0)
+    x = X[:, 0] if was_vec else X
+    return GmresResult(x, total, residuals or [0.0], bool(np.all(converged)))
+
+
+def _on_device(b, device) -> torch.Tensor:
+    """`b` as a real tensor: a tensor keeps its device, numpy goes to
+    `device` (default: the card)."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.as_tensor(np.asarray(b)).to(resolve_device(device))
+    check(not b.is_complex(), "real dtypes only: run a complex system "
+          "through its 2x2 real embedding", InvalidArgumentsError)
+    return b
+
+
+def _as_device_op(A, like: torch.Tensor):
+    """A callable stays; a matrix (tensor or numpy) becomes `A @ V` on the
+    right-hand side's device and dtype."""
+    if callable(A):
+        return A
+    At = torch.as_tensor(A).to(device=like.device, dtype=like.dtype)
+    return lambda V: At @ V
+
+
+def solve_gmres_device(
+    matvec,
+    b,
+    tol: float = 1e-6,
+    restart: int = 32,
+    max_cycles: int = 8,
+    M=None,
+    device=None,
+):
+    """Device-resident restarted GMRES: the Krylov basis, the Givens
+    recurrence and the back substitution stay on b's device; the host reads
+    one residual per restart cycle.
+
+    Real dtypes only (run Helmholtz through the 2x2 real-embedded stacked
+    system, e.g. `StagePlan.apply_stacked`). matvec/M: (n, k) -> (n, k)
+    callables on device tensors, or matrices. Every cycle runs all
+    `restart` steps. Returns (x, total_iters, rel_res): x a tensor on b's
+    device, total_iters = cycles * restart, rel_res the largest column's
+    Givens residual estimate after the last cycle.
+    """
+    B = _on_device(b, device)
+    was_vec = B.ndim == 1
+    if was_vec:
+        B = B[:, None]
+    check(B.ndim == 2, "b must be (n,) or (n, k)", InvalidArgumentsError)
+    apply_a = _as_device_op(matvec, B)
+    apply_m = _as_device_op(M, B) if M is not None else (lambda V: V)
+    n, k = B.shape
+    m = int(restart)
+
+    def nonzero(v):
+        return torch.where(v > 0, v, torch.ones_like(v))
+
+    bnorm = nonzero(torch.linalg.vector_norm(B, dim=0))
+
+    def cycle(X):
+        R = apply_m(B - apply_a(X))
+        beta = torch.linalg.vector_norm(R, dim=0)
+        V = B.new_zeros((m + 1, n, k))
+        V[0] = R / nonzero(beta)
+        H = B.new_zeros((m + 1, m, k))
+        cs = B.new_zeros((m, k))
+        sn = B.new_zeros((m, k))
+        g = B.new_zeros((m + 1, k))
+        g[0] = beta
+        for j in range(m):
+            W = apply_m(apply_a(V[j]))
+            # classical Gram-Schmidt with one reorthogonalization pass
+            # against V[0..j] (the JAX package's fixed-shape CGS2)
+            Vj = V[: j + 1]
+            proj = torch.einsum("ink,nk->ik", Vj, W)
+            W = W - torch.einsum("ink,ik->nk", Vj, proj)
+            proj2 = torch.einsum("ink,nk->ik", Vj, W)
+            W = W - torch.einsum("ink,ik->nk", Vj, proj2)
+            hcol = B.new_zeros((m + 1, k))
+            hcol[: j + 1] = proj + proj2
+            h = torch.linalg.vector_norm(W, dim=0)
+            V[j + 1] = torch.where(h > 0, W / nonzero(h), 0.0)
+            hcol[j + 1] = h
+            # the accumulated rotations, in order
+            for i in range(j):
+                t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                hcol[i + 1] = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                hcol[i] = t
+            a, bb = hcol[j].clone(), hcol[j + 1].clone()
+            denom = torch.sqrt(a ** 2 + bb ** 2)
+            cj = torch.where(denom > 0, a.abs() / nonzero(denom), 1.0)
+            sj = torch.where(denom > 0, torch.sign(a) * bb / nonzero(denom),
+                             0.0)
+            hcol[j] = cj * a + sj * bb
+            hcol[j + 1] = 0.0
+            cs[j] = cj
+            sn[j] = sj
+            g[j + 1] = -sj * g[j]
+            g[j] = cj * g[j]
+            H[:, j] = hcol
+        # back substitution over all m steps
+        y = B.new_zeros((m, k))
+        for i in range(m - 1, -1, -1):
+            num = g[i] - (H[i] * y).sum(dim=0)
+            hii = H[i, i]
+            y[i] = num / torch.where(hii.abs() > 0, hii, torch.ones_like(hii))
+        Xn = X + torch.einsum("mnk,mk->nk", V[:m], y)
+        return Xn, float((g[m].abs() / bnorm).max())
+
+    X = torch.zeros_like(B)
+    res, cycles = float("inf"), 0
+    with _f32_precision("highest"):
+        while res >= tol and cycles < max_cycles:
+            X, res = cycle(X)
+            cycles += 1
+    return (X[:, 0] if was_vec else X), cycles * m, res
+
+
+def solve_gmres_plan(
+    apply_fn,
+    b,
+    tol: float = 1e-6,
+    restart: int = 60,
+    max_iter: int = 240,
+    device=None,
+) -> GmresResult:
+    """Restarted GMRES DRIVEN FROM PYTHON with the vectors on the device:
+    the Krylov basis (CGS2), and the solution update stay on b's device;
+    the host receives one Hessenberg column per iteration and runs the
+    Givens recurrence in float64.
+
+    `apply_fn` maps an (n,) device tensor to an (n,) or (n, 1) one: any
+    Python-level callable, e.g. the BIE system around
+    `PartitionPlan.apply`. Solve wall time is then about iterations times
+    the apply.
+
+    Real dtypes only: run complex systems through the interleaved real
+    embedding. A float32 basis floors the relative residual around
+    1e-6..1e-7; a `tol` below that runs to max_iter and reports the floor.
+    `converged` is the true final residual under 10 * tol.
+    """
+    b = _on_device(b, device)
+    check(b.ndim == 1, "solve_gmres_plan is single-RHS ((n,) vector)",
+          InvalidArgumentsError)
+    n = b.shape[0]
+    m = int(restart)
+
+    x = torch.zeros_like(b)
+    bnorm = float(torch.linalg.vector_norm(b))
+    if bnorm == 0:
+        return GmresResult(np.zeros(n), 0, [0.0], True)
+
+    def resid(x):
+        return b - apply_fn(x).reshape(n)
+
+    residuals: list[float] = []
+    total = 0
+    converged = False
+    with _f32_precision("highest"):
+        while total < max_iter and not converged:
+            r = resid(x)
+            rnorm = float(torch.linalg.vector_norm(r))
+            residuals.append(rnorm / bnorm)
+            if rnorm / bnorm < tol:
+                converged = True
+                break
+            V = b.new_zeros((m + 1, n))
+            V[0] = r / (rnorm if rnorm > 0 else 1.0)
+            # host-side f64 Givens recurrence state
+            Hr = np.zeros((m + 1, m))
+            cs = np.zeros(m)
+            sn = np.zeros(m)
+            g = np.zeros(m + 1)
+            g[0] = rnorm
+            j_used = 0
+            for j in range(m):
+                if total >= max_iter:
+                    break
+                w = apply_fn(V[j]).reshape(n)
+                # CGS2 against V[0..j]
+                Vj = V[: j + 1]
+                h1 = Vj @ w
+                w = w - Vj.T @ h1
+                h2 = Vj @ w
+                w = w - Vj.T @ h2
+                beta = torch.linalg.vector_norm(w)
+                V[j + 1] = w / torch.where(beta > 0, beta,
+                                           torch.ones_like(beta))
+                # the iteration's one fetch: h[0..j] and the new norm
+                hcol = np.zeros(m + 1)
+                hcol[: j + 2] = torch.cat([h1 + h2, beta[None]]).to(
+                    "cpu", torch.float64).numpy()
+                for i in range(j):
+                    t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                    hcol[i + 1] = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                    hcol[i] = t
+                a, bb = hcol[j], hcol[j + 1]
+                d = np.hypot(a, bb)
+                cs[j], sn[j] = (1.0, 0.0) if d == 0 else (a / d, bb / d)
+                hcol[j] = cs[j] * a + sn[j] * bb
+                hcol[j + 1] = 0.0
+                g[j + 1] = -sn[j] * g[j]
+                g[j] = cs[j] * g[j]
+                Hr[:, j] = hcol
+                total += 1
+                j_used = j + 1
+                res = abs(g[j + 1]) / bnorm
+                residuals.append(res)
+                if res < tol:
+                    converged = True
+                    break
+            if j_used:
+                y = np.zeros(j_used)
+                for i in range(j_used - 1, -1, -1):
+                    y[i] = (g[i] - Hr[i, i + 1:j_used] @ y[i + 1:]) / (
+                        Hr[i, i] if Hr[i, i] != 0 else 1.0)
+                x = x + V[:j_used].T @ torch.as_tensor(
+                    y, dtype=V.dtype, device=V.device)
+        # true residual check (the Givens estimate drifts at the f32 floor)
+        final = float(torch.linalg.vector_norm(resid(x))) / bnorm
+    residuals.append(final)
+    log_info("gmres_plan: %d iters, rel res %.3e (givens est %.3e)",
+             total, final, residuals[-2] if len(residuals) > 1 else 0.0)
+    return GmresResult(x.cpu().numpy(), total, residuals,
+                       bool(final < 10 * tol))

@@ -53,10 +53,30 @@ each printing its numbers on lines of their own:
      bounds of the work K2 executes after trimming and of the padded work
      are printed beside it, and per pass K2's engine, its matmul entries
      before and after trimming, its groups, the heaviest output tile's
-     work against the mean, and the executed flops.
+     work against the mean, and the executed flops;
+  7. the Helmholtz BIE solve at n=16384 through the scale twin
+     (`butterfly_tpu_torch/examples/helm2_scale.py`): the combined-field
+     operator D - ikS on the same ellipse at 64 points per wavelength
+     (k=298.8), quadtree leaf 64, factorized on the host and compiled on
+     the card (`setup`); K2 held to 1e-5 against `cells_plain` on this
+     plan at r=1 (the shape GMRES runs) and r=64, and timed beside the
+     plain passes, the operator materialized through the plan (n2 x n2
+     float32: `D @ x`, freed before the solve) and its bound (weights
+     bytes over the HBM rate, useful flops over the float32 peak); then
+     the twin's `measure`: its apply timings, the 128-row oracle (held to
+     1e-6) and `solve_gmres_plan` on the second-kind BIE (held to
+     converge), with iterations, seconds, ms per iteration and K2 launches
+     over the solve, beside the TPU record `HELM2_SCALE_r05.json`;
+  8. the fast direct solver's device substitution (`DeviceSolver`) on the
+     operator-first Toeplitz system at n=4096
+     (`butterfly_tpu_torch/examples/fast_direct_solver.py`): host float64
+     factorization and residual (1e-8), 64 right-hand sides on the card
+     against the host solve (5e-4), the refined residual (1e-8) and the
+     device ms per right-hand side. It launches no kernel (plain products).
 
-Each part of the main path (phases 4 and 5 through K1, phase 6 through K2)
-runs with the launch counts set to 0 just before and read just after.
+Each part of the main path (phases 4 and 5 through K1, phases 6 and 7
+through K2) runs with the launch counts set to 0 just before and read just
+after.
 Times are medians of CUDA-event timings after warm-up. The last lines are
 one JSON object describing the kernels, the `nvidia-smi` line, and the
 result object. Any failed check exits non-zero; nothing is caught and
@@ -66,11 +86,11 @@ carried on.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -81,6 +101,7 @@ PEAK_F32 = 67e12         # FLOP/s, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+ROOT = Path(__file__).resolve().parent
 
 
 def require(cond: bool, msg: str) -> None:
@@ -112,8 +133,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, str(ROOT))
     from butterfly_tpu_torch.config import FacSpec
+    from butterfly_tpu_torch.examples import fast_direct_solver, helm2_scale
     from butterfly_tpu_torch.fac import helm2 as fac_helm2
     from butterfly_tpu_torch.fac.partition import partition_apply_plan
     from butterfly_tpu_torch.fac.streamer import FacStreamer
@@ -133,6 +155,7 @@ def main() -> int:
     )
     from butterfly_tpu_torch.ops.fused_butterfly import K1, FusedButterflyPlan
     from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
+    from butterfly_tpu_torch.ops.linalg import solve_gmres_plan
     from butterfly_tpu_torch.trees import Quadtree, uniform_tree
     from butterfly_tpu_torch.utils.nvcc import build_kernel
     from butterfly_tpu_torch.utils.timer import device_time
@@ -678,6 +701,142 @@ def main() -> int:
         rel_err_library_vs_plain=err_lib, rel_err_dense_vs_apply=err_dense,
         max_abs_err=max_abs_E, launches=launches_E)
     print("[6 helm2 partition] " + json.dumps(part), flush=True)
+    del pp, c1, c2, xE, yE, tK, tP, yK, yP, D, xz, x64
+    torch.cuda.empty_cache()
+
+    # ---- 7. the Helmholtz BIE solve at n=16384 (the scale twin) ---------
+    nS, rS = 16384, 64
+    prob = helm2_scale.setup(nS, 64.0, 64, device=dev)
+    ps = prob.plan
+    print(f"[7 helm2 scale] n={nS} k={prob.rec['k']}: host fac "
+          f"{prob.rec['setup_fac_s']:.2f} s, plan {prob.rec['setup_plan_s']:.2f}"
+          f" s, weights {prob.rec['weights_mb']:.1f} MB, classes "
+          f"{ps._lr_meta}, oversized {len(ps._mega)}", flush=True)
+    require(ps.cells1 is not None and not ps._mega,
+            "the n=16384 plan should hold low-rank classes and no oversized "
+            "block")
+    s1, s2 = ps.cells1, ps.cells2
+    scale = {}
+    for r in (1, rS):
+        x = torch.randn((ps.n2, r), generator=gen(20 + r), device=dev)
+        # K2 against the plain passes on this plan (not counted)
+        y, y_plain = ps.apply(x), ps.apply_plain(x)
+        err = rel_err(y, y_plain)
+        require(y.shape == (ps.n2, r) and bool(torch.isfinite(y).all()),
+                f"scale twin r={r}: output")
+        require(err <= 1e-5, f"scale twin r={r}: K2 vs plain {err:.3e}")
+        t = s1.apply([x])
+        p1 = 1e3 * device_time(lambda: s1.apply([x]), warmup=2, iters=20)
+        p2 = 1e3 * device_time(lambda: s2.apply([x, t]), warmup=2, iters=20)
+        plain = 1e3 * device_time(
+            lambda: (s1.apply_plain([x]), s2.apply_plain([x, t])), warmup=1,
+            iters=10)
+        nbytes_S = (s1.nbytes() + s2.nbytes() + 2 * nbytes_of(x)
+                    + nbytes_of(t))
+        b_ms, b_by = bound_ms(ps.useful_flops_per_col() * r, nbytes_S,
+                              PEAK_F32)
+        scale[r] = dict(
+            ms=p1 + p2, k2_pass_ms=[p1, p2], plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, bound_bytes=nbytes_S,
+            useful_flops=ps.useful_flops_per_col() * r,
+            executed_flops=(s1.executed_flops_per_col()
+                            + s2.executed_flops_per_col()) * r,
+            rel_err_vs_plain=err,
+            max_abs_err=float((y.double() - y_plain.double()).abs().max()))
+        del y, y_plain, t
+    # dense: the operator materialized through the plan, n2 x n2 float32
+    chunk = 1024
+    D = torch.empty((ps.n2, ps.n2), device=dev)
+    ar = torch.arange(chunk, device=dev)
+    for j in range(0, ps.n2, chunk):
+        e = torch.zeros((ps.n2, chunk), device=dev)
+        e[j + ar, ar] = 1.0
+        D[:, j:j + chunk] = ps.apply(e)
+    del e
+    for r in (1, rS):
+        x = torch.randn((ps.n2, r), generator=gen(20 + r), device=dev)
+        scale[r]["dense_ms"] = 1e3 * device_time(lambda: D @ x, warmup=2,
+                                                 iters=20)
+        scale[r]["rel_err_dense_vs_apply"] = rel_err(D @ x, ps.apply(x))
+        print(f"[7 helm2 scale] K2 r={r}: " + json.dumps(scale[r]),
+              flush=True)
+    # the same BIE solved through other applies of the same plan (not
+    # counted): the plain passes, the materialized operator in float32, and
+    # that operator in float64 with a float64 Krylov basis. Iterations
+    # that differ from the K2 solve's come from float32 rounding, not from
+    # the compressed operator.
+    b2 = prob.rhs()
+    wp2 = prob.wp2
+    D64 = D.double()
+    wp64 = wp2.double()
+    diag = {}
+    for what, fn, b in (
+            ("plain passes", lambda v: 0.5 * v + ps.apply_plain(
+                (v * wp2)[:, None])[:, 0], b2),
+            ("dense f32", lambda v: 0.5 * v + D @ (v * wp2), b2),
+            ("dense f64", lambda v: 0.5 * v + D64 @ (v * wp64),
+             b2.double())):
+        res = solve_gmres_plan(fn, b, tol=helm2_scale.GMRES_TOL,
+                               restart=helm2_scale.GMRES_RESTART,
+                               max_iter=helm2_scale.GMRES_MAX_ITER)
+        diag[what] = dict(iters=res.num_iter, converged=res.converged,
+                          residuals=res.residuals)
+        print(f"[7 helm2 scale] GMRES through the {what}: {res.num_iter} "
+              f"iterations, residuals " + " ".join(
+                  f"{x:.2e}" for x in res.residuals), flush=True)
+    del D, D64
+    torch.cuda.empty_cache()
+    # the main path: the twin's apply timings, row oracle and GMRES solve
+    K1.launches = 0
+    K2.launches = 0
+    row = helm2_scale.measure(prob, queries=rS)
+    torch.cuda.synchronize()
+    launches_S = K2.launches
+    require(launches_S > 0 and K1.launches == 0,
+            f"the scale twin launched K2 {launches_S} and K1 {K1.launches} "
+            "times")
+    require(row["rel_err_vs_dense"] <= 1e-6,
+            f"scale twin row-oracle rel err {row['rel_err_vs_dense']:.3e}")
+    require(row["gmres_converged"],
+            f"GMRES did not converge: {row['gmres_iters']} iterations, rel "
+            f"res {row['gmres_rel_res']:.3e}")
+    require(row["gmres_k2_launches"] >= 2 * row["gmres_iters"],
+            f"GMRES launched K2 {row['gmres_k2_launches']} times in "
+            f"{row['gmres_iters']} iterations")
+    print("[7 helm2 scale] row: " + json.dumps(row), flush=True)
+    print("[7 helm2 scale] GMRES through K2: residuals " + " ".join(
+        f"{x:.2e}" for x in row["gmres_residuals"]), flush=True)
+    tpu = next(t for t in json.loads(
+        (ROOT / "HELM2_SCALE_r05.json").read_text()) if t.get("n") == nS)
+    print(f"[7 helm2 scale] TPU record HELM2_SCALE_r05.json ({tpu['device']},"
+          f" not this card): {tpu['gmres_iters']} GMRES iterations, row-"
+          f"oracle rel err {tpu['rel_err_vs_dense']}; here "
+          f"{row['gmres_iters']} iterations, {row['rel_err_vs_dense']:.3e}",
+          flush=True)
+    del prob, ps, s1, s2, x
+    torch.cuda.empty_cache()
+
+    # ---- 8. the fast direct solver's device substitution ---------------
+    nF = 4096
+    accF, fds, facF_s = fast_direct_solver.factor_operator(nF)
+    rngF = np.random.default_rng(0)
+    bF = rngF.standard_normal(nF)
+    resF = float(np.linalg.norm(accF.matmat(fds.solve(bF)) - bF)
+                 / np.linalg.norm(bF))
+    require(resF <= 1e-8, f"fast direct solver host residual {resF:.3e}")
+    K1.launches = 0
+    K2.launches = 0
+    dsolve = fast_direct_solver.run_device(accF, fds, rngF, device=dev)
+    torch.cuda.synchronize()
+    require(K1.launches == 0 and K2.launches == 0,
+            "the device solve launched K1 or K2")
+    require(dsolve["rel_vs_host"] <= 5e-4,
+            f"device solve vs host {dsolve['rel_vs_host']:.3e} > 5e-4")
+    require(dsolve["refined_residual"] <= 1e-8,
+            f"refined residual {dsolve['refined_residual']:.3e} > 1e-8")
+    dsolve.update(n=nF, host_fac_s=facF_s, host_residual=resF,
+                  storage_mb=fds.nbytes() / 1e6, batch=fast_direct_solver.BATCH)
+    print("[8 device solve] " + json.dumps(dsolve), flush=True)
 
     # ---- the record -----------------------------------------------------
     head = results["flagship bf16"]
@@ -700,7 +859,7 @@ def main() -> int:
         "route": "cuda",
         "source": "butterfly_tpu_torch/csrc/k2_cell.cu",
         "replaces": "butterfly_tpu/ops/cellsp.py:95",
-        "launches": launches_E,
+        "launches": launches_E + launches_S,
         "max_abs_err": part["max_abs_err"],
         "ms": part["ms"],
         "plain_ms": part["plain_ms"],
@@ -709,7 +868,14 @@ def main() -> int:
         "library_ms": part["library_ms"],
         "shape": "both cell passes of the helm2 partition apply, "
                  + part["shape"],
-        "cases": {"helm2 partition": part},
+        "cases": {"helm2 partition": part,
+                  "helm2 scale r=1 (GMRES)": dict(
+                      scale[1], launches=row["gmres_k2_launches"],
+                      gmres_iters=row["gmres_iters"]),
+                  f"helm2 scale r={rS}": scale[rS],
+                  "helm2 scale row": row,
+                  "helm2 scale GMRES through other applies": diag,
+                  "device solve (no kernel)": dsolve},
     }]}
     print(json.dumps(kernels))
     print(smi)

@@ -14,10 +14,16 @@ SLICE_MODULES = [
     "butterfly_tpu_torch",
     "butterfly_tpu_torch.config",
     "butterfly_tpu_torch.convert",
+    "butterfly_tpu_torch.examples",
+    "butterfly_tpu_torch.examples.fast_direct_solver",
+    "butterfly_tpu_torch.examples.helm2_scale",
     "butterfly_tpu_torch.fac",
+    "butterfly_tpu_torch.fac.device_solve",
     "butterfly_tpu_torch.fac.distill",
     "butterfly_tpu_torch.fac.helm2",
+    "butterfly_tpu_torch.fac.middle_out",
     "butterfly_tpu_torch.fac.partition",
+    "butterfly_tpu_torch.fac.solver",
     "butterfly_tpu_torch.fac.streamer",
     "butterfly_tpu_torch.fac.uniformize",
     "butterfly_tpu_torch.geom",
@@ -30,6 +36,8 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.ops.cellsp",
     "butterfly_tpu_torch.ops.fused_butterfly",
     "butterfly_tpu_torch.ops.helm2",
+    "butterfly_tpu_torch.ops.hostpack",
+    "butterfly_tpu_torch.ops.linalg",
     "butterfly_tpu_torch.ops.linop",
     "butterfly_tpu_torch.ops.packed",
     "butterfly_tpu_torch.ops.special",
@@ -43,6 +51,7 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.utils.errors",
     "butterfly_tpu_torch.utils.logging",
     "butterfly_tpu_torch.utils.nvcc",
+    "butterfly_tpu_torch.utils.oracle",
     "butterfly_tpu_torch.utils.prng",
     "butterfly_tpu_torch.utils.timer",
 ]
@@ -66,6 +75,12 @@ from butterfly_tpu_torch.fac.partition import PartitionPlan
 from butterfly_tpu_torch.ops.cellsp import Cell, CellPlan
 from butterfly_tpu_torch.ops.linop import Dense
 from butterfly_tpu_torch.ops.packed import pack
+from butterfly_tpu_torch.ops.linalg import solve_gmres_device, solve_gmres_plan
+from butterfly_tpu_torch.fac.device_solve import DeviceSolver
+from butterfly_tpu_torch.fac.solver import FastDirectSolver
+from butterfly_tpu_torch.examples.helm2_scale import run_one
+from butterfly_tpu_torch.examples.fast_direct_solver import (
+    factor_operator, run_device)
 import numpy as np
 
 def raises(fn):
@@ -83,6 +98,13 @@ assert raises(lambda: uniform_butterfly_from_numpy(None, [np.ones((1, 2, 2, 1, 1
 assert raises(lambda: CellPlan(128, [128], [Cell(0, 0, 0, None)]))
 assert raises(lambda: PartitionPlan(Dense(np.eye(256))))
 assert raises(lambda: pack(Dense(np.eye(4))))
+fds = FastDirectSolver(np.eye(64) * 2 + 0.01, base_size=32)
+assert raises(lambda: DeviceSolver(fds))
+assert raises(lambda: run_one(256, 64.0, 64))
+assert raises(lambda: solve_gmres_plan(lambda v: v, np.ones(4)))
+assert raises(lambda: solve_gmres_device(lambda v: v, np.ones((4, 1))))
+acc, fds_t, _ = factor_operator(64)
+assert raises(lambda: run_device(acc, fds_t, np.random.default_rng(0)))
 print("isolated")
 """
 

@@ -90,3 +90,39 @@ def test_partition_low_rank_classes(separated_fac, limit):
     assert [m["cls"] for m in pp._lr_meta] == [512, 1024]
     assert 0 < pp.useful_flops_per_col() < pp.flops_per_col()
     assert _rel(pp.apply_complex(zs), want) < 2e-5
+
+
+def test_combined_field_windows_need_more_than_the_f32_packed_apply():
+    """The BIE operator of the scale twin (combined field, ppw 64, leaf 64)
+    at n=2048. A plan whose low-rank windows are multiplied out from their
+    chains in float64 reads under 3e-7 against `A.matmat`; the float32
+    packed apply, which the default path materializes to slice the
+    windows from, reads at least 1.5x that. So windows sliced from a
+    float32 materialization cap the plan's accuracy (ROADMAP queue 3:
+    at n=16384 the card's plan reads 8.0e-7 on the row oracle, and GMRES
+    takes 18 iterations through it where the TPU record took 12)."""
+    from butterfly_tpu_torch.fac import helm2 as fac_helm2
+    from butterfly_tpu_torch.geom import Ellipse as PEllipse
+    from butterfly_tpu_torch.ops.helm2 import Helm2 as PHelm2
+    from butterfly_tpu_torch.ops.helm2 import LayerPot as PLayerPot
+    from butterfly_tpu_torch.ops.packed import pack
+    from butterfly_tpu_torch.trees import Quadtree as PQuadtree
+
+    n = 2048
+    X, _, Nrm, w = PEllipse(1.0, 0.7, (0.0, 0.0), 0.3).sample_linspaced(n)
+    k = 2 * np.pi * n / (64.0 * float(np.sum(w)))
+    tree = PQuadtree(X, leaf_size=64, normals=Nrm)
+    A = fac_helm2.make_multilevel(
+        PHelm2(k=k, layer_pot=PLayerPot.COMBINED_FIELD, alpha=-1j * k,
+               beta=1.0), tree, tree)
+    rng = np.random.default_rng(0)
+    zs = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    want = A.matmat(zs)
+    pp = partition_apply_plan(A, device="cpu",
+                              dense_materialize_limit_bytes=0)
+    assert pp.cells1 is not None
+    rel_chains = _rel(pp.apply_complex(zs), want)
+    packed = pack(A, block_align=64, real_embed=True, device="cpu")
+    rel_packed = _rel(packed(zs).numpy(), want)
+    assert rel_chains < 3e-7
+    assert rel_packed > 1.5 * rel_chains
