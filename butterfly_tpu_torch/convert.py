@@ -7,7 +7,8 @@ JAX `UniformButterfly`'s factors — and build the port's objects, so that a
 test can hand both packages the same operator. `linop_from_numpy` rebuilds
 a host `LinOp` tree (such as a multilevel Helmholtz factorization) and
 `cells_from_numpy` a list of cells, `fast_direct_solver_from_numpy` a
-hierarchical-LU factorization. Nothing here imports JAX or the JAX
+hierarchical-LU factorization, `compressed_table_from_numpy` a retrieval
+table's factors. Nothing here imports JAX or the JAX
 package: the JAX objects are read by class name and fields.
 """
 
@@ -20,13 +21,15 @@ import torch
 
 from butterfly_tpu_torch.fac import solver as S
 from butterfly_tpu_torch.fac.distill import DistilledButterfly
+from butterfly_tpu_torch.models.retrieval import CompressedTable
 from butterfly_tpu_torch.ops import linop as L
 from butterfly_tpu_torch.ops.butterfly import UniformButterfly
 from butterfly_tpu_torch.ops.cellsp import Cell
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
 
-__all__ = ["cells_from_numpy", "distilled_from_numpy",
+__all__ = ["cells_from_numpy", "compressed_table_from_numpy",
+           "distilled_from_numpy",
            "fast_direct_solver_from_numpy", "linop_from_numpy",
            "uniform_butterfly_from_numpy"]
 
@@ -73,6 +76,17 @@ def distilled_from_numpy(
         bf=bf, row_perm=np.asarray(row_perm), rank=int(rank),
         max_sv_discarded=float(max_sv_discarded), sigma_max=float(sigma_max),
     )
+
+
+def compressed_table_from_numpy(Psi: np.ndarray, V: np.ndarray, device=None,
+                                dtype: torch.dtype | None = None
+                                ) -> CompressedTable:
+    """The port's CompressedTable from a JAX one's factors: Psi (NB, s,
+    rank) and V (NB, rank, d) as numpy arrays. dtype=None keeps their own
+    dtype."""
+    device = resolve_device(device)
+    return CompressedTable(_tensor(Psi, device, dtype),
+                           _tensor(V, device, dtype))
 
 
 def linop_from_numpy(op) -> L.LinOp:

@@ -17,10 +17,12 @@ Each size prints one JSON row with the JAX script's keys, except
 `mega_streamed_mb` (the port streams no weights from the host), plus
 `apply_ms_r1` (the apply at one column, the shape GMRES runs),
 `gmres_ms_per_iter`, `gmres_residuals` (the relative residual history,
-the true final residual last) and `gmres_k2_launches`. Times are medians of CUDA-event
-timings on the card; where the plan lies on the CPU, they are None (not
-measured). `run_one` = `measure(setup(...))`; `chip_smoke.py` calls the two
-halves itself to check K2 on the plan in between.
+the true final residual last), `gmres_k2_launches` and `windows` (where
+the plan's low-rank windows came from: "device_f64" or "host_chains").
+Times are medians of CUDA-event timings on the card; where the plan lies
+on the CPU, they are None (not measured). `run_one` =
+`measure(setup(...))`; `chip_smoke.py` calls the two halves itself to
+check K2 on the plan in between.
 """
 
 from __future__ import annotations
@@ -117,8 +119,10 @@ def setup(n: int, ppw: float, leaf: int, device=None) -> Helm2Scale:
     rec["dense_mb"] = n * n * 16 / 1e6
     rec["compression_ratio"] = plan.nbytes() / (n * n * 16)
     rec["num_mega_blocks"] = len(plan._mega)
+    rec["windows"] = plan.windows
     log(f"  plan: {rec['setup_plan_s']:.1f} s, {rec['weights_mb']:.1f} MB "
-        f"({rec['compression_ratio']:.4f} of dense c128)")
+        f"({rec['compression_ratio']:.4f} of dense c128), low-rank windows "
+        f"{plan.windows}")
     wp2 = torch.as_tensor(np.repeat(w[tree.perm], 2), dtype=torch.float32,
                           device=device)
     return Helm2Scale(helm, k, X[tree.perm], Nrm[tree.perm], wp2, plan, rec)

@@ -31,11 +31,14 @@ block's input rows, apply the sub-plan, `index_add_` into y.
 
 What changed for the card:
 - the member windows are sliced from the whole operator materialized on
-  the device when it fits: by an explicit test against
-  `torch.cuda.mem_get_info()` on the card, by the JAX package's 2 GB
-  gather-buffer limit on the CPU (`dense_materialize_limit_bytes=0` still
-  forces the host-chain path); a failure there raises instead of falling
-  back to the host;
+  the device in float64 when it fits (then cast to float32 batch by batch,
+  as the host-chain path casts the windows it multiplies out in float64):
+  by an explicit test against `torch.cuda.mem_get_info()` on the card, by
+  the JAX package's 2 GB gather-buffer limit on the CPU
+  (`dense_materialize_limit_bytes=0` still forces the host-chain path); a
+  failure there raises instead of falling back to the host. The JAX
+  package materializes in float32, whose rounding caps the plan's
+  accuracy, and at n=16384 took its host-chain path instead;
 - no HBM guess from the device kind, no pinning or streaming of oversized
   blocks' weights, no dispatch throttle: the card's 80 GB holds them;
 - `apply_with` and jit are gone: `apply(x)` runs eagerly.
@@ -71,8 +74,9 @@ from butterfly_tpu_torch.utils.logging import log_info
 
 __all__ = ["PartitionPlan", "partition_apply_plan"]
 
-# columns per identity chunk of the device materialization
-_MATERIALIZE_CHUNK = 256
+# columns per identity chunk of the float64 device materialization: 128 x 8
+# bytes, the gather working set of the JAX package's 256 float32 columns
+_MATERIALIZE_CHUNK = 128
 # the JAX package's gather-buffer limit, kept where there is no card
 _HOST_GATHER_LIMIT_BYTES = 2 << 30
 # per-block factorization target: relative probe residual of a class
@@ -169,12 +173,13 @@ def _size_classes(sizes, tiles):
 
 
 def _slice_batch(M: torch.Tensor, members, npad: int) -> torch.Tensor:
-    """(B, npad, npad) member windows of the materialized operator M, each
-    masked to its block's true rows and columns (indices past M's edge are
-    clamped, then masked)."""
+    """(B, npad, npad) float32 member windows of the materialized operator
+    M, each masked to its block's true rows and columns (indices past M's
+    edge are clamped, then masked) and rounded to float32 once."""
     dev = M.device
     ar = torch.arange(npad, device=dev)
-    out = torch.empty((len(members), npad, npad), dtype=M.dtype, device=dev)
+    out = torch.empty((len(members), npad, npad), dtype=torch.float32,
+                      device=dev)
     for i, b in enumerate(members):
         ri = (b.i0 - b.shift_r + ar).clamp_(max=M.shape[0] - 1)
         ci = (b.j0 - b.shift_c + ar).clamp_(max=M.shape[1] - 1)
@@ -226,7 +231,7 @@ class PartitionPlan:
 
     def __init__(self, op: LinOp,
                  bf_tiles=(256, 512, 1024, 2048, 4096),
-                 dense_materialize_limit_bytes: int = 6 << 30,
+                 dense_materialize_limit_bytes: int = 16 << 30,
                  device=None):
         device = resolve_device(device)
         self.device = device
@@ -282,6 +287,7 @@ class PartitionPlan:
 
         # ---- low-rank classes: device sketch factorization --------------
         self._lr_meta = []
+        self.windows = None   # where the low-rank member windows came from
         t_off = 0          # running row offset into the t buffer
         max_win_end = self.n2
         dev_tiles1: list = []   # V tile stacks (device)
@@ -295,22 +301,24 @@ class PartitionPlan:
                 for g0 in range(0, len(members), gmax):
                     groups.append((cls, members[g0:g0 + gmax]))
 
-            # small-n fast path: materialize the WHOLE operator on the
-            # device once and slice member windows from it; the host chain
-            # materialization is the slow path
+            # fast path: materialize the WHOLE operator on the device
+            # once, in float64, and slice member windows from it; the host
+            # chain materialization (float64 too) is the slow path
             M = None
             if self._materialize_fits(op, chains, mul,
                                       dense_materialize_limit_bytes):
-                plan_p = packed_mod.pack(op, block_align=64,
-                                         real_embed=self._complex,
-                                         device=device)
+                plan_p = packed_mod.pack(
+                    op, dtype=np.complex128 if self._complex else np.float64,
+                    block_align=64, real_embed=self._complex, device=device)
                 M = materialize_on_device(plan_p, chunk=_MATERIALIZE_CHUNK)
                 del plan_p
                 if self._complex:
                     M = stacked_to_interleaved(M)
+            self.windows = "device_f64" if M is not None else "host_chains"
             log_info("partition: member windows %s",
-                     "sliced from the operator materialized on the device"
-                     if M is not None else "multiplied out on the host")
+                     "sliced from the operator materialized on the device "
+                     "in float64" if M is not None
+                     else "multiplied out on the host in float64")
 
             def embed_member(b, npad):
                 Z = _materialize_chain(b.chain)
@@ -456,21 +464,23 @@ class PartitionPlan:
 
     def _materialize_fits(self, op: LinOp, chains, mul: int,
                           limit_bytes: int) -> bool:
-        """Whether the whole operator is materialized on the device. The
-        packed plan that builds it stages about one row per unit input for
-        each identity chunk; on the card that working set, the weights and
-        the dense matrix (twice: stacked, then interleaved) must fit in the
-        free memory, elsewhere the gather buffer must stay under the JAX
-        package's 2 GB limit."""
-        dense = self.n2 * self.m2 * 4
+        """Whether the whole operator is materialized on the device, in
+        float64 (8-byte words throughout). The packed plan that builds it
+        stages about one row per unit input for each identity chunk; on the
+        card that working set, the plan's weights (each complex entry four
+        real words) and the dense matrix (twice: stacked, then interleaved)
+        must fit in the free memory, elsewhere the gather buffer must stay
+        under the JAX package's 2 GB limit."""
+        dense = self.n2 * self.m2 * 8
         if dense > limit_bytes:
             return False
         gather = (mul * sum(f.in_dim for c in chains for f in c.factors)
-                  * _MATERIALIZE_CHUNK * 4)
+                  * _MATERIALIZE_CHUNK * 8)
         if self.device.type != "cuda":
             return gather <= _HOST_GATHER_LIMIT_BYTES
+        weights = op.nbytes() // np.dtype(op.dtype).itemsize * mul * mul * 8
         free, _ = torch.cuda.mem_get_info(self.device)
-        return 3 * gather + 2 * dense + 2 * op.nbytes() <= free
+        return 3 * gather + 2 * dense + 2 * weights <= free
 
     # -- application -----------------------------------------------------
 

@@ -1,36 +1,59 @@
 """The fac -> device bridge: factorized operators onto the K1 kernel.
 
-Port counterpart of `FusedFacPlan` and `uniformize_fused` in
-`butterfly_tpu/fac/uniformize.py` (:187-277). A REAL factorized operator
-(a `PartialFac` from the streaming factorizer, or any real LinOp) is
-re-compressed to uniform FFT form on the host (fac/distill.py) and applied
-through the fused pass kernel (ops/fused_butterfly.py): the fast path for
-the reference's product apply (src/fac.c:133-146), which walks the factor
-graph one small BLAS call per block. `materialize_on_device` (:52-79)
-densifies a packed `StagePlan` on its device for the partition apply; the
-ragged packed-plan path `uniformize` waits for a later slice.
+Port counterpart of `butterfly_tpu/fac/uniformize.py`. Two paths take a
+factorized operator (a `PartialFac` from the streaming factorizer, or any
+LinOp) to the card:
+
+- `uniformize` (:280-317) keeps the fac's ragged ranks and packs it into a
+  `StagePlan` (ops/packed.py): one batched product per bucket of padded
+  block shapes and stage. `choose_block_align` (:93-186, with
+  `AlignEstimate`, `fac_block_stats` and `estimate_for_align`) picks the
+  bucket tile from the unit shapes before any device memory is committed;
+  the host NumPy code is the JAX package's, copied.
+- `uniformize_fused` and `FusedFacPlan` (:187-277) re-compress a REAL
+  operator to uniform FFT form on the host (fac/distill.py) and apply it
+  through the fused pass kernel K1 (ops/fused_butterfly.py).
+
+Both replace the reference's product apply (src/fac.c:133-146), which walks
+the factor graph one small BLAS call per block. `materialize_on_device`
+(:52-79) densifies a packed `StagePlan` on its device for the partition
+apply.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from butterfly_tpu_torch.fac.distill import DistilledButterfly, distill_butterfly
 from butterfly_tpu_torch.fac.streamer import PartialFac
+from butterfly_tpu_torch.ops import packed as packed_mod
 from butterfly_tpu_torch.ops.fused_butterfly import FusedButterflyPlan
 from butterfly_tpu_torch.ops.linop import LinOp
-from butterfly_tpu_torch.ops.packed import StagePlan
+from butterfly_tpu_torch.ops.packed import StagePlan, pack
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 from butterfly_tpu_torch.utils.logging import log_info
 
-__all__ = ["FusedFacPlan", "materialize_on_device", "uniformize_fused"]
+__all__ = [
+    "AlignEstimate",
+    "FusedFacPlan",
+    "choose_block_align",
+    "estimate_for_align",
+    "fac_block_stats",
+    "materialize_on_device",
+    "uniformize",
+    "uniformize_fused",
+]
 
 
 def materialize_on_device(plan: StagePlan, chunk: int = 256) -> torch.Tensor:
     """Dense materialization of a packed plan on its own device: apply it
-    to identity column blocks built there and keep the result there. For a
+    to identity column blocks built there, in the plan's own dtype (a
+    float64 plan materializes in float64), and keep the result there. For a
     real-embedded complex plan the result is the (2n, 2m) STACKED [Re; Im]
     real matrix (StagePlan's convention)."""
     m = plan.shape[1] * (2 if plan.real_embed else 1)
@@ -39,7 +62,7 @@ def materialize_on_device(plan: StagePlan, chunk: int = 256) -> torch.Tensor:
     cols = torch.arange(w, device=plan.device)[None, :]
     outs = []
     for j0 in range(0, m, w):
-        E = (rows == j0 + cols).to(torch.float32)
+        E = (rows == j0 + cols).to(plan._meta.dtype)
         outs.append(plan._run(E))
     return torch.cat(outs, dim=1)[:, :m]
 
@@ -52,6 +75,139 @@ def _as_linop(obj) -> LinOp:
     raise InvalidArgumentsError(
         f"expected a PartialFac or LinOp, got {type(obj).__name__}"
     )
+
+
+@dataclasses.dataclass
+class AlignEstimate:
+    """Predicted pack statistics for one candidate block_align."""
+
+    block_align: int
+    num_gemm_units: int
+    num_buckets: int
+    useful_flops_per_col: int
+    padded_flops_per_col: int
+    padding_waste: float
+    padded_weight_elems: int
+
+
+def _unit_shapes(op: LinOp) -> list[tuple[int, int, int]]:
+    """(stage, m, k) of every dense GEMM unit, via one flatten pass."""
+    chains: list = []
+    packed_mod._flatten(op, 0, 0, chains)
+    shapes = []
+    for c in chains:
+        for t, f in enumerate(c.factors):
+            for u in f.gemms:
+                mm, kk = u.data.shape
+                shapes.append((t, mm, kk))
+    return shapes
+
+
+def fac_block_stats(obj) -> dict:
+    """Per-stage block-size histogram of a factorized operator — the raw
+    rank-raggedness data behind the bucketing decision."""
+    shapes = _unit_shapes(_as_linop(obj))
+    stages: dict[int, list[tuple[int, int]]] = {}
+    for t, m, k in shapes:
+        stages.setdefault(t, []).append((m, k))
+    out = {}
+    for t, blks in sorted(stages.items()):
+        ms = np.array([m for m, _ in blks])
+        ks = np.array([k for _, k in blks])
+        out[t] = {
+            "num_blocks": len(blks),
+            "m_min": int(ms.min()), "m_max": int(ms.max()),
+            "k_min": int(ks.min()), "k_max": int(ks.max()),
+            "m_mean": float(ms.mean()), "k_mean": float(ks.mean()),
+        }
+    return out
+
+
+def estimate_for_align(shapes: Sequence[tuple[int, int, int]],
+                       block_align: int) -> AlignEstimate:
+    buckets: dict[tuple, int] = {}
+    useful = 0
+    padded = 0
+    pelems = 0
+    for t, m, k in shapes:
+        mp = packed_mod._round_up(m, block_align)
+        kp = packed_mod._round_up(k, block_align)
+        buckets[(t, mp, kp)] = buckets.get((t, mp, kp), 0) + 1
+        useful += 2 * m * k
+        padded += 2 * mp * kp
+        pelems += mp * kp
+    return AlignEstimate(
+        block_align=block_align,
+        num_gemm_units=len(shapes),
+        num_buckets=len(buckets),
+        useful_flops_per_col=useful,
+        padded_flops_per_col=padded,
+        padding_waste=1.0 - useful / max(padded, 1),
+        padded_weight_elems=pelems,
+    )
+
+
+def choose_block_align(
+    obj,
+    candidates: Sequence[int] = (16, 32, 64, 128),
+    bucket_overhead_flops: int = 1 << 22,
+) -> tuple[int, list[AlignEstimate]]:
+    """Pick the bucket tile size minimizing estimated apply cost.
+
+    Cost model (the JAX package's, kept so both packages pick the same
+    tile): padded flops (work including the padding) plus a fixed cost per
+    bucket, about 4 MFLOP of work, since each bucket is one take, one
+    batched product and one take-sum. Small aligns waste little padding but
+    multiply the buckets; 128 can pad ragged ranks more than 2x.
+    """
+    shapes = _unit_shapes(_as_linop(obj))
+    check(shapes, "operator has no dense blocks to pack")
+    ests = [estimate_for_align(shapes, a) for a in candidates]
+    best = min(
+        ests,
+        key=lambda e: e.padded_flops_per_col
+        + bucket_overhead_flops * e.num_buckets,
+    )
+    return best.block_align, ests
+
+
+def uniformize(
+    obj,
+    dtype=None,
+    block_align: int | None = None,
+    real_embed: bool = False,
+    device=None,
+) -> StagePlan:
+    """Compile a factorization-engine output into its packed device plan
+    on `device` (default: the card).
+
+    obj: a `PartialFac` (streamer output), a LinOp, or any expression over
+    them. block_align: bucket tile size; None picks one via
+    `choose_block_align`. The JAX function's `precision` and `tiling`
+    arguments are gone: the port's `pack` always multiplies in IEEE float32
+    (or the plan's float64) and pads every unit to its own tile.
+
+    Returns a StagePlan; `plan.stats.padding_waste` records the
+    uniformization cost.
+    """
+    op = _as_linop(obj)
+    if block_align is None:
+        block_align, ests = choose_block_align(op)
+        est = next(e for e in ests if e.block_align == block_align)
+        log_info("uniformize: chose block_align=%d (waste %.1f%%, %d "
+                 "buckets)", block_align, 100 * est.padding_waste,
+                 est.num_buckets)
+    plan = pack(op, dtype=dtype, block_align=block_align,
+                real_embed=real_embed, device=device)
+    log_info(
+        "uniformize: %d stages, %d gemm buckets, padding waste %.1f%%, "
+        "%.1f MB weights",
+        plan.stats.num_stages,
+        plan.stats.num_gemm_buckets,
+        100 * plan.stats.padding_waste,
+        plan.stats.weight_bytes / 1e6,
+    )
+    return plan
 
 
 class FusedFacPlan:

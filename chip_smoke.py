@@ -58,25 +58,40 @@ each printing its numbers on lines of their own:
      (`butterfly_tpu_torch/examples/helm2_scale.py`): the combined-field
      operator D - ikS on the same ellipse at 64 points per wavelength
      (k=298.8), quadtree leaf 64, factorized on the host and compiled on
-     the card (`setup`); K2 held to 1e-5 against `cells_plain` on this
-     plan at r=1 (the shape GMRES runs) and r=64, and timed beside the
-     plain passes, the operator materialized through the plan (n2 x n2
-     float32: `D @ x`, freed before the solve) and its bound (weights
-     bytes over the HBM rate, useful flops over the float32 peak); then
-     the twin's `measure`: its apply timings, the 128-row oracle (held to
-     1e-6) and `solve_gmres_plan` on the second-kind BIE (held to
-     converge), with iterations, seconds, ms per iteration and K2 launches
-     over the solve, beside the TPU record `HELM2_SCALE_r05.json`;
+     the card (`setup`; the plan must slice its low-rank windows from the
+     operator materialized on the card in float64); K2 held to 1e-5
+     against `cells_plain` on this plan at r=1 (the shape GMRES runs) and
+     r=64, and timed beside the plain passes, the operator materialized
+     through the plan (n2 x n2 float32: `D @ x`, freed before the solve)
+     and its bound (weights bytes over the HBM rate, useful flops over
+     the float32 peak); then the twin's `measure`: its apply timings, the
+     128-row oracle (held to 1e-6, and below the 7.987e-7 that float32
+     windows read on the H100) and `solve_gmres_plan` on the second-kind
+     BIE (held to converge within the 18 iterations of float32 windows),
+     with iterations, seconds, ms per iteration and K2 launches over the
+     solve, beside the TPU record `HELM2_SCALE_r05.json`;
   8. the fast direct solver's device substitution (`DeviceSolver`) on the
      operator-first Toeplitz system at n=4096
      (`butterfly_tpu_torch/examples/fast_direct_solver.py`): host float64
      factorization and residual (1e-8), 64 right-hand sides on the card
      against the host solve (5e-4), the refined residual (1e-8) and the
-     device ms per right-hand side. It launches no kernel (plain products).
+     device ms per right-hand side. It launches no kernel (plain products);
+  9. retrieval (`butterfly_tpu_torch/examples/retrieval_lbo.py`): BASELINE
+     config 2, the 1M x 128 table compressed at rank 32 (`--config1m
+     --skip-deep-1m`): size and setup, lookup and a 512-row sample of the
+     scores held to 1e-6 against the factors multiplied out in float64 on
+     the host, the serving time of scoring + top-100 for 256 queries
+     beside its bound and the dense `Q @ Phi.T` + `torch.topk`, strict and
+     tolerance recall@100 against exact IEEE scoring on the card
+     (tolerance recall held to 0.99), the re-rank row; then the
+     `--synthetic` table in its three formats, the last (`deep_fused`) on
+     K1: its passes held to 1e-5 against `pass_plain` and its strict
+     recall through K1 equal to that through the plain passes; then
+     `butterfly_tpu_torch.entry.entry()` once.
 
 Each part of the main path (phases 4 and 5 through K1, phases 6 and 7
-through K2) runs with the launch counts set to 0 just before and read just
-after.
+through K2, phase 9 through K1) runs with the launch counts set to 0 just
+before and read just after.
 Times are medians of CUDA-event timings after warm-up. The last lines are
 one JSON object describing the kernels, the `nvidia-smi` line, and the
 result object. Any failed check exits non-zero; nothing is caught and
@@ -127,6 +142,98 @@ def nbytes_of(t: torch.Tensor) -> int:
 def pass_split(plan) -> list:
     """(depth, column tile, engine) of each pass of a FusedButterflyPlan."""
     return [(p.k, p.r_tile, p.engine) for p in plan.passes]
+
+
+def retrieval_phase(dev, timer):
+    """Phase 9: the retrieval twin's `--config1m` (without the deep
+    format) and `--synthetic` runs and `entry()`, with the launch
+    counts set to 0 just before and read just after; then K1 on the
+    deep_fused plan against its plain passes. Returns (K1's deep_fused
+    case, K1 launches of the phase)."""
+    from butterfly_tpu_torch.entry import entry
+    from butterfly_tpu_torch.examples import retrieval_lbo as twin
+    from butterfly_tpu_torch.models.retrieval import recall_at_k
+    from butterfly_tpu_torch.ops.cellsp import K2
+    from butterfly_tpu_torch.ops.fused_butterfly import K1, pass_plain
+
+    args_1m = twin.parse_args(["--config1m", "--skip-deep-1m"])
+    args_syn = twin.parse_args(["--synthetic"])
+    K1.launches = 0
+    K2.launches = 0
+    with torch.no_grad():
+        rows_1m = twin.run_config1m(args_1m, dev)
+        rows_syn, fused = twin.run_table(twin.synthetic_table(), args_syn,
+                                         dev)
+        forward, eargs = entry(device=dev)
+        evals, eidx = forward(*eargs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = K1.launches
+    require(launches > 0 and K2.launches == 0,
+            f"retrieval launched K1 {launches} and K2 {K2.launches} times")
+    for r in rows_1m + rows_syn:
+        print("[9 retrieval] " + json.dumps(r), flush=True)
+    one = rows_1m[0]
+    require(one["lookup_rel_err_vs_f64"] <= 1e-6,
+            f"config1m lookup vs float64 {one['lookup_rel_err_vs_f64']:.3e}")
+    require(one["score_rel_err_vs_f64"] <= 1e-6,
+            f"config1m scores vs float64 {one['score_rel_err_vs_f64']:.3e}")
+    require(one["recall_at_100_tol1e-3"] >= 0.99,
+            f"config1m tolerance recall {one['recall_at_100_tol1e-3']}")
+    print(f"[9 retrieval] config1m serving: {one['ms_per_batch']} ms a batch "
+          f"of {args_1m.queries} ({one['queries_per_s']} q/s) against a bound "
+          f"of {one['bound_ms']:.4f} ms ({one['bound_queries_per_s']} q/s); "
+          f"dense Q @ Phi.T + topk {one['dense_ms_per_batch']} ms "
+          f"({one['dense_queries_per_s']} q/s)", flush=True)
+    tpu = json.loads((ROOT / "RETRIEVAL_R05_1M.json").read_text())
+    print("[9 retrieval] TPU record RETRIEVAL_R05_1M.json (not this card): "
+          + "; ".join(f"{t['format']} {t['queries_per_s']} q/s, strict "
+                      f"{t['recall_at_100_strict']}" for t in tpu),
+          flush=True)
+    require(tuple(evals.shape) == (16, 100) and tuple(eidx.shape) == (16, 100)
+            and bool(torch.isfinite(evals).all())
+            and int(eidx.min()) >= 0 and int(eidx.max()) < 32 * 128,
+            f"entry(): values {tuple(evals.shape)}, ids {tuple(eidx.shape)}")
+    print(f"[9 retrieval] entry(): top-100 of 16 queries, best score "
+          f"{float(evals[:, 0].max()):.4f}", flush=True)
+
+    # K1 on the deep_fused plan against its plain passes (not counted)
+    plan, dist, x = fused["plan"], fused["dist"], fused["x"]
+    y, y_plain = plan.apply(x), plan.apply_plain(x)
+    err = rel_err(y, y_plain)
+    require(err <= 1e-5, f"deep_fused: K1 vs plain {err:.3e}")
+    cur = x
+    for i, (pm, ws) in enumerate(zip(plan.passes, plan._pass_weights)):
+        leafp = plan._leafp if pm.has_leaf else None
+        got = K1(pm, plan.radix, cur, leafp, ws)
+        err_p = rel_err(got, pass_plain(pm, plan.radix, cur, leafp, ws))
+        require(err_p <= 1e-5, f"deep_fused pass {i}: K1 vs plain {err_p:.3e}")
+        cur = got
+    ids_k1 = dist.row_perm[torch.topk(y.T, 100).indices.cpu().numpy()]
+    ids_plain = dist.row_perm[torch.topk(y_plain.T, 100).indices.cpu().numpy()]
+    rec_k1 = recall_at_k(ids_k1, fused["true100"])
+    rec_plain = recall_at_k(ids_plain, fused["true100"])
+    require(rec_k1 == rec_plain,
+            f"deep_fused strict recall {rec_k1} through K1, {rec_plain} "
+            "through the plain passes")
+    r = x.shape[1]
+    flops = dist.bf.flops_per_col() * r
+    b_ms, b_by = bound_ms(flops, dist.bf.nbytes() + nbytes_of(x)
+                          + nbytes_of(y), PEAK_F32)
+    case = dict(
+        shape=f"n=4096 d=256 NB={plan.NB} rank={dist.rank} r={r} float32",
+        passes=pass_split(plan),
+        ms=1e3 * timer(lambda: plan.apply(x), warmup=2, iters=20),
+        plain_ms=1e3 * timer(lambda: plan.apply_plain(x), warmup=1,
+                             iters=20),
+        library_ms=1e3 * timer(lambda: dist.bf.apply(x), warmup=1,
+                               iters=20),
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=float((y.double() - y_plain.double()).abs().max()),
+        rel_err_vs_plain=err, recall_at_100_strict_k1=rec_k1,
+        recall_at_100_strict_plain=rec_plain, launches=launches)
+    print("[9 retrieval] K1 on deep_fused: " + json.dumps(case), flush=True)
+    return case, launches
 
 
 def main() -> int:
@@ -710,11 +817,14 @@ def main() -> int:
     ps = prob.plan
     print(f"[7 helm2 scale] n={nS} k={prob.rec['k']}: host fac "
           f"{prob.rec['setup_fac_s']:.2f} s, plan {prob.rec['setup_plan_s']:.2f}"
-          f" s, weights {prob.rec['weights_mb']:.1f} MB, classes "
-          f"{ps._lr_meta}, oversized {len(ps._mega)}", flush=True)
+          f" s, low-rank windows {ps.windows}, weights "
+          f"{prob.rec['weights_mb']:.1f} MB, classes {ps._lr_meta}, oversized "
+          f"{len(ps._mega)}", flush=True)
     require(ps.cells1 is not None and not ps._mega,
             "the n=16384 plan should hold low-rank classes and no oversized "
             "block")
+    require(ps.windows == "device_f64",
+            f"the n=16384 plan took its {ps.windows} path")
     s1, s2 = ps.cells1, ps.cells2
     scale = {}
     for r in (1, rS):
@@ -800,6 +910,11 @@ def main() -> int:
     require(row["gmres_converged"],
             f"GMRES did not converge: {row['gmres_iters']} iterations, rel "
             f"res {row['gmres_rel_res']:.3e}")
+    # float64 windows: below the float32 windows' row oracle (7.987e-7) and
+    # iterations (18) on the H100
+    require(row["rel_err_vs_dense"] < 7.987e-7 and row["gmres_iters"] <= 18,
+            f"scale twin with {row['windows']} windows: row oracle "
+            f"{row['rel_err_vs_dense']:.3e}, {row['gmres_iters']} iterations")
     require(row["gmres_k2_launches"] >= 2 * row["gmres_iters"],
             f"GMRES launched K2 {row['gmres_k2_launches']} times in "
             f"{row['gmres_iters']} iterations")
@@ -808,10 +923,12 @@ def main() -> int:
         f"{x:.2e}" for x in row["gmres_residuals"]), flush=True)
     tpu = next(t for t in json.loads(
         (ROOT / "HELM2_SCALE_r05.json").read_text()) if t.get("n") == nS)
-    print(f"[7 helm2 scale] TPU record HELM2_SCALE_r05.json ({tpu['device']},"
-          f" not this card): {tpu['gmres_iters']} GMRES iterations, row-"
-          f"oracle rel err {tpu['rel_err_vs_dense']}; here "
-          f"{row['gmres_iters']} iterations, {row['rel_err_vs_dense']:.3e}",
+    print(f"[7 helm2 scale] windows {row['windows']}, plan "
+          f"{row['setup_plan_s']:.2f} s: {row['gmres_iters']} GMRES "
+          f"iterations, row-oracle rel err {row['rel_err_vs_dense']:.3e}; "
+          f"with windows from a float32 materialization (H100): 18, 7.987e-7;"
+          f" TPU record HELM2_SCALE_r05.json ({tpu['device']}, not this "
+          f"card): {tpu['gmres_iters']}, {tpu['rel_err_vs_dense']}",
           flush=True)
     del prob, ps, s1, s2, x
     torch.cuda.empty_cache()
@@ -838,6 +955,10 @@ def main() -> int:
                   storage_mb=fds.nbytes() / 1e6, batch=fast_direct_solver.BATCH)
     print("[8 device solve] " + json.dumps(dsolve), flush=True)
 
+    # ---- 9. retrieval -----------------------------------------------------
+    k1_retrieval, launches_R = retrieval_phase(dev, device_time)
+    torch.cuda.empty_cache()
+
     # ---- the record -----------------------------------------------------
     head = results["flagship bf16"]
     kernels = {"kernels": [{
@@ -845,7 +966,7 @@ def main() -> int:
         "route": "cuda",
         "source": "butterfly_tpu_torch/csrc/k1_pass.cu",
         "replaces": "butterfly_tpu/ops/pallas_butterfly.py:132",
-        "launches": launches,
+        "launches": launches + launches_R,
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -853,7 +974,8 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shape": head["shape"],
-        "cases": {"flagship f32": results["flagship f32"], "real fac": real},
+        "cases": {"flagship f32": results["flagship f32"], "real fac": real,
+                  "retrieval deep_fused": k1_retrieval},
     }, {
         "name": "k2_cell",
         "route": "cuda",

@@ -14,9 +14,12 @@ SLICE_MODULES = [
     "butterfly_tpu_torch",
     "butterfly_tpu_torch.config",
     "butterfly_tpu_torch.convert",
+    "butterfly_tpu_torch.entry",
     "butterfly_tpu_torch.examples",
     "butterfly_tpu_torch.examples.fast_direct_solver",
     "butterfly_tpu_torch.examples.helm2_scale",
+    "butterfly_tpu_torch.examples.retrieval",
+    "butterfly_tpu_torch.examples.retrieval_lbo",
     "butterfly_tpu_torch.fac",
     "butterfly_tpu_torch.fac.device_solve",
     "butterfly_tpu_torch.fac.distill",
@@ -31,6 +34,8 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.geom.circle",
     "butterfly_tpu_torch.geom.ellipse",
     "butterfly_tpu_torch.geom.points",
+    "butterfly_tpu_torch.models",
+    "butterfly_tpu_torch.models.retrieval",
     "butterfly_tpu_torch.ops",
     "butterfly_tpu_torch.ops.butterfly",
     "butterfly_tpu_torch.ops.cellsp",
@@ -81,6 +86,10 @@ from butterfly_tpu_torch.fac.solver import FastDirectSolver
 from butterfly_tpu_torch.examples.helm2_scale import run_one
 from butterfly_tpu_torch.examples.fast_direct_solver import (
     factor_operator, run_device)
+from butterfly_tpu_torch.entry import entry
+from butterfly_tpu_torch.models.retrieval import (
+    compress_table, compress_table_deep)
+from butterfly_tpu_torch.examples import retrieval, retrieval_lbo
 import numpy as np
 
 def raises(fn):
@@ -105,6 +114,11 @@ assert raises(lambda: solve_gmres_plan(lambda v: v, np.ones(4)))
 assert raises(lambda: solve_gmres_device(lambda v: v, np.ones((4, 1))))
 acc, fds_t, _ = factor_operator(64)
 assert raises(lambda: run_device(acc, fds_t, np.random.default_rng(0)))
+assert raises(entry)
+assert raises(lambda: compress_table(np.ones((128, 8)), 4))
+assert raises(lambda: compress_table_deep(np.ones((256, 64))))
+assert raises(lambda: retrieval.main(["--n", "1024"]))
+assert raises(lambda: retrieval_lbo.main(["--synthetic"]))
 print("isolated")
 """
 

@@ -10,6 +10,7 @@ random sketches, so the plans are compared by their applies.
 
 import numpy as np
 import pytest
+import torch
 
 from butterfly_tpu.fac import helm2 as jax_fac_helm2
 from butterfly_tpu.fac.partition import partition_apply_plan as jax_plan
@@ -18,6 +19,22 @@ from butterfly_tpu.ops.helm2 import Helm2, LayerPot
 from butterfly_tpu.trees import Quadtree
 from butterfly_tpu_torch.convert import linop_from_numpy
 from butterfly_tpu_torch.fac.partition import partition_apply_plan
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch and one BLAS thread while this module runs: the suite runs
+    several workers at once, and a pool of a thread per core in each of
+    them oversubscribes the cores until small products stall."""
+    from threadpoolctl import threadpool_limits
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _operator(nE, k):
@@ -92,20 +109,14 @@ def test_partition_low_rank_classes(separated_fac, limit):
     assert _rel(pp.apply_complex(zs), want) < 2e-5
 
 
-def test_combined_field_windows_need_more_than_the_f32_packed_apply():
+@pytest.fixture(scope="module")
+def combined_field():
     """The BIE operator of the scale twin (combined field, ppw 64, leaf 64)
-    at n=2048. A plan whose low-rank windows are multiplied out from their
-    chains in float64 reads under 3e-7 against `A.matmat`; the float32
-    packed apply, which the default path materializes to slice the
-    windows from, reads at least 1.5x that. So windows sliced from a
-    float32 materialization cap the plan's accuracy (ROADMAP queue 3:
-    at n=16384 the card's plan reads 8.0e-7 on the row oracle, and GMRES
-    takes 18 iterations through it where the TPU record took 12)."""
+    at n=2048, built by the port, with a probe and its exact action."""
     from butterfly_tpu_torch.fac import helm2 as fac_helm2
     from butterfly_tpu_torch.geom import Ellipse as PEllipse
     from butterfly_tpu_torch.ops.helm2 import Helm2 as PHelm2
     from butterfly_tpu_torch.ops.helm2 import LayerPot as PLayerPot
-    from butterfly_tpu_torch.ops.packed import pack
     from butterfly_tpu_torch.trees import Quadtree as PQuadtree
 
     n = 2048
@@ -117,12 +128,37 @@ def test_combined_field_windows_need_more_than_the_f32_packed_apply():
                beta=1.0), tree, tree)
     rng = np.random.default_rng(0)
     zs = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
-    want = A.matmat(zs)
+    return A, zs, A.matmat(zs)
+
+
+def test_combined_field_windows_need_more_than_the_f32_packed_apply(
+        combined_field):
+    """A plan whose low-rank windows are multiplied out from their chains
+    in float64 reads under 3e-7 against `A.matmat`; the float32 packed
+    apply, which the JAX package materializes to slice the windows from,
+    reads at least 1.5x that. So windows sliced from a float32
+    materialization would cap the plan's accuracy (at n=16384 such a plan
+    read 8.0e-7 on the row oracle on the card, and GMRES took 18
+    iterations through it where the TPU record took 12)."""
+    from butterfly_tpu_torch.ops.packed import pack
+
+    A, zs, want = combined_field
     pp = partition_apply_plan(A, device="cpu",
                               dense_materialize_limit_bytes=0)
-    assert pp.cells1 is not None
+    assert pp.cells1 is not None and pp.windows == "host_chains"
     rel_chains = _rel(pp.apply_complex(zs), want)
     packed = pack(A, block_align=64, real_embed=True, device="cpu")
     rel_packed = _rel(packed(zs).numpy(), want)
     assert rel_chains < 3e-7
     assert rel_packed > 1.5 * rel_chains
+
+
+def test_combined_field_device_windows_are_sliced_from_float64(
+        combined_field):
+    """The default path materializes the whole operator through a float64
+    packed plan and slices the windows from it: it reads under 3e-7, like
+    the host-chain plan, where a float32 materialization could not."""
+    A, zs, want = combined_field
+    pp = partition_apply_plan(A, device="cpu")
+    assert pp.cells1 is not None and pp.windows == "device_f64"
+    assert _rel(pp.apply_complex(zs), want) < 3e-7
