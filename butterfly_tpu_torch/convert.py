@@ -8,7 +8,8 @@ test can hand both packages the same operator. `linop_from_numpy` rebuilds
 a host `LinOp` tree (such as a multilevel Helmholtz factorization) and
 `cells_from_numpy` a list of cells, `fast_direct_solver_from_numpy` a
 hierarchical-LU factorization, `compressed_table_from_numpy` a retrieval
-table's factors. Nothing here imports JAX or the JAX
+table's factors, `kr_corrector_from_numpy` a Kapur-Rokhlin accumulate
+corrector. Nothing here imports JAX or the JAX
 package: the JAX objects are read by class name and fields.
 """
 
@@ -25,13 +26,14 @@ from butterfly_tpu_torch.models.retrieval import CompressedTable
 from butterfly_tpu_torch.ops import linop as L
 from butterfly_tpu_torch.ops.butterfly import UniformButterfly
 from butterfly_tpu_torch.ops.cellsp import Cell
+from butterfly_tpu_torch.ops.quadrature import KrAccumCorrector
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
 
 __all__ = ["cells_from_numpy", "compressed_table_from_numpy",
            "distilled_from_numpy",
-           "fast_direct_solver_from_numpy", "linop_from_numpy",
-           "uniform_butterfly_from_numpy"]
+           "fast_direct_solver_from_numpy", "kr_corrector_from_numpy",
+           "linop_from_numpy", "uniform_butterfly_from_numpy"]
 
 
 def _tensor(a, device, dtype):
@@ -94,7 +96,7 @@ def linop_from_numpy(op) -> L.LinOp:
     same numpy arrays (nothing is copied).
 
     Carries Dense, Diag, Identity, Zero, Perm, Scaled, Product, Sum, Diff,
-    BlockDiag, BlockCoo and BlockDense, recursively; any other class
+    BlockDiag, BlockCoo, BlockDense and Coo, recursively; any other class
     raises InvalidArgumentsError."""
     name = type(op).__name__
     conv = linop_from_numpy
@@ -123,7 +125,15 @@ def linop_from_numpy(op) -> L.LinOp:
                           op.col_inds, [conv(b) for b in op.blocks])
     if name == "BlockDense":
         return L.BlockDense([[conv(b) for b in row] for row in op.grid])
+    if name == "Coo":
+        return L.Coo(tuple(op.shape), op.row_inds, op.col_inds, op.values)
     raise InvalidArgumentsError(f"cannot carry a {name} across")
+
+
+def kr_corrector_from_numpy(corr) -> KrAccumCorrector:
+    """The port's `KrAccumCorrector` for a JAX-package one: the same
+    (n, 2*order) coefficient and index tables."""
+    return KrAccumCorrector(np.asarray(corr.coef), np.asarray(corr.idx))
 
 
 def cells_from_numpy(cells) -> list[Cell]:

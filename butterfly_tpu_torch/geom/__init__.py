@@ -1,6 +1,7 @@
-"""Geometry the Helmholtz slice needs: boxes, circles, point helpers and
-ellipses. Port counterparts of the same modules of `butterfly_tpu/geom/`,
-copied; `poisson_disk`, `trimesh` and `visibility` wait for later slices."""
+"""Geometry the Helmholtz slices need: boxes, circles, point helpers,
+ellipses and Poisson-disk sampling. Port counterparts of the same modules
+of `butterfly_tpu/geom/`, copied; `trimesh` and `visibility` wait for later
+slices."""
 
 from butterfly_tpu_torch.geom.bbox import Bbox
 from butterfly_tpu_torch.geom.circle import Circle, circles_are_separated
@@ -11,6 +12,7 @@ from butterfly_tpu_torch.geom.points import (
     insert_points_sorted,
     pairwise_dists,
 )
+from butterfly_tpu_torch.geom.poisson_disk import sample_poisson_disk
 
 __all__ = [
     "Bbox",
@@ -21,4 +23,5 @@ __all__ = [
     "bounding_box",
     "insert_points_sorted",
     "pairwise_dists",
+    "sample_poisson_disk",
 ]

@@ -32,8 +32,9 @@ is re-laid out once, on its device, into the per-pass form
 into one product; the leaf becomes (hiG, 1, R^k, m0, k0). The public
 layout stays the JAX one.
 
-`FusedButterflyPlan.apply` launches K1 for CUDA tensors and runs the plain
-PyTorch version of the same pass (`pass_plain`: per-level products with the
+`FusedButterflyPlan.apply` (and the one-shot `fused_apply`, the JAX
+package's `pallas_butterfly.py:414`) launches K1 for CUDA tensors and runs
+the plain PyTorch version of the same pass (`pass_plain`: per-level products with the
 same casts) for CPU tensors. There is no fallback from one to the other.
 """
 
@@ -54,7 +55,7 @@ from butterfly_tpu_torch.utils.errors import (
 )
 from butterfly_tpu_torch.utils.nvcc import load_kernel
 
-__all__ = ["FusedButterflyPlan", "K1", "pass_plain"]
+__all__ = ["FusedButterflyPlan", "K1", "fused_apply", "pass_plain"]
 
 # Shared memory a CTA may use on the H100 (opt-in maximum per block), and
 # an SM's, of which each resident CTA also takes 1 KB.
@@ -429,3 +430,11 @@ class FusedButterflyPlan:
         if self._leafp is not None:
             ts.append(self._leafp)
         return sum(t.numel() * t.element_size() for t in ts)
+
+
+def fused_apply(bf: UniformButterfly, x: torch.Tensor,
+                fuse: int = 3) -> torch.Tensor:
+    """One-shot fused apply on x's device (builds and caches nothing;
+    prefer the plan). The JAX package's `r_tile` is a TPU VMEM size: here
+    each pass's column tile is set by the plan (`FusedButterflyPlan`)."""
+    return FusedButterflyPlan(bf, fuse=fuse, device=x.device).apply(x)

@@ -16,9 +16,10 @@ Helmholtz factorization and the packed planner use:
 - BlockDiag       <- mat_block_diag.c
 - BlockCoo        <- mat_block_coo.c
 - BlockDense      <- mat_block_dense.c
+- Coo             <- mat_coo_real.c / mat_coo_complex.c
 
-The rest of the reference algebra (Givens, Coo, indexed blocks) waits for
-the slices that use it.
+The rest of the reference algebra (Givens, indexed blocks) waits for the
+slices that use it.
 
 This layer runs on the host in float64/complex128 and is used for
 (a) factorization-time math (truncated SVDs, least squares, merges) and
@@ -53,6 +54,7 @@ __all__ = [
     "BlockDiag",
     "BlockCoo",
     "BlockDense",
+    "Coo",
     "hpad",
     "row_slice",
 ]
@@ -737,6 +739,63 @@ class BlockDense(LinOp):
 
     def children(self):
         return tuple(b for row in self.grid for b in row)
+
+
+class Coo(LinOp):
+    """Element-sparse COO operator (reference: mat_coo_real.c /
+    mat_coo_complex.c). Used for quadrature corrections added on top of
+    factorized operators."""
+
+    def __init__(self, shape: tuple[int, int], row_inds, col_inds, values):
+        self.row_inds = np.asarray(row_inds, dtype=np.int64)
+        self.col_inds = np.asarray(col_inds, dtype=np.int64)
+        self.values = np.asarray(values)
+        check(
+            self.row_inds.shape == self.col_inds.shape == self.values.shape,
+            "Coo: inds/values must have equal length",
+        )
+        self._shape = tuple(shape)
+        self._dtype = self.values.dtype
+
+    def _matmat(self, X):
+        Y = np.zeros((self.shape[0], X.shape[1]),
+                     np.result_type(self.dtype, X.dtype))
+        np.add.at(Y, self.row_inds, self.values[:, None] * X[self.col_inds])
+        return Y
+
+    def _rmatmat(self, X):
+        Y = np.zeros((self.shape[1], X.shape[1]),
+                     np.result_type(self.dtype, X.dtype))
+        np.add.at(Y, self.col_inds,
+                  np.conj(self.values)[:, None] * X[self.row_inds])
+        return Y
+
+    def materialize(self):
+        A = np.zeros(self.shape, dtype=self.dtype)
+        np.add.at(A, (self.row_inds, self.col_inds), self.values)
+        return A
+
+    def nbytes(self):
+        return (self.values.nbytes + self.row_inds.nbytes
+                + self.col_inds.nbytes)
+
+    def transpose(self):
+        return Coo((self.shape[1], self.shape[0]), self.col_inds,
+                   self.row_inds, self.values)
+
+    def adjoint(self):
+        return Coo((self.shape[1], self.shape[0]), self.col_inds,
+                   self.row_inds, np.conj(self.values))
+
+    def permuted(self, perm: np.ndarray) -> "Coo":
+        """Apply a symmetric row/col permutation: entry (i, j) moves to
+        (p^-1(i), p^-1(j)) where perm maps tree position -> original index
+        (reference: bfMatPermuteRows/Cols on the correction,
+        src/quadrature.c:180-184)."""
+        rev = np.empty(self.shape[0], dtype=np.int64)
+        rev[perm] = np.arange(self.shape[0])
+        return Coo(self.shape, rev[self.row_inds], rev[self.col_inds],
+                   self.values)
 
 
 def hpad(op: LinOp, left: int, right: int) -> LinOp:

@@ -87,11 +87,36 @@ each printing its numbers on lines of their own:
      `--synthetic` table in its three formats, the last (`deep_fused`) on
      K1: its passes held to 1e-5 against `pass_plain` and its strict
      recall through K1 equal to that through the plain passes; then
-     `butterfly_tpu_torch.entry.entry()` once.
+     `butterfly_tpu_torch.entry.entry()` once;
+ 10. the Helmholtz BIE family: the `helm2_bie` twin at n=2048, k=40, then
+     the `multiple_scattering` twin at k=25 with 3 scatterers of 512
+     points (`butterfly_tpu_torch/examples/`). Each builds its host path
+     (the dense system and LU, the host butterfly system and host GMRES)
+     and the card system: the S' operator through `partition_apply_plan`
+     and the Kapur-Rokhlin accumulate corrector on the card. K2 on the S'
+     plan is held to 1e-5 against `cells_plain` at r=1 and r=64 and timed
+     beside the plain passes, the materialized operator's `D @ x` and the
+     bound; then the card solve: the system's MVP held to 1e-6 against the
+     dense float64 system in tree order, the density to 2e-5 against the
+     dense LU, `solve_gmres_plan` (tol 3e-7, no restarts) held to converge
+     (its true residual under 10 x tol or, where the plan's float32 error
+     alone keeps the residual above that even at the dense-LU density,
+     its Givens estimate under tol: the scattering system's floor, about
+     6.7e-6, of which the plan's error is 6.6e-6 and the corrector's
+     4.4e-7 in a CPU run) and
+     the field to 1e-5 (helm2_bie) and 1e-4 (multiple_scattering) against
+     the exact solution; its iterations beside host GMRES's and K2
+     launches over the solve;
+ 11. the rest of the fac -> device bridge: `distill_butterfly_device` of a
+     1024 x 512 DCT matrix (NB=16, rank 64) on the card, held to 1e-5
+     against dense in float64, and `distill_butterfly_batch` of a
+     (4, 256, 256) batch (NB=8, rank 64), held to 1e-6 against
+     block-diag(M_b); both applied by `fused_apply` through K1, its passes
+     held to 1e-5 against `pass_plain` and equal to the plan's own apply.
 
 Each part of the main path (phases 4 and 5 through K1, phases 6 and 7
-through K2, phase 9 through K1) runs with the launch counts set to 0 just
-before and read just after.
+through K2, phase 9 through K1, phase 10 through K2, phase 11 through K1)
+runs with the launch counts set to 0 just before and read just after.
 Times are medians of CUDA-event timings after warm-up. The last lines are
 one JSON object describing the kernels, the `nvidia-smi` line, and the
 result object. Any failed check exits non-zero; nothing is caught and
@@ -233,6 +258,227 @@ def retrieval_phase(dev, timer):
         rel_err_vs_plain=err, recall_at_100_strict_k1=rec_k1,
         recall_at_100_strict_plain=rec_plain, launches=launches)
     print("[9 retrieval] K1 on deep_fused: " + json.dumps(case), flush=True)
+    return case, launches
+
+
+def materialize(plan, chunk: int = 1024) -> torch.Tensor:
+    """The operator of a partition plan as an (n2, n2) float32 matrix on
+    its device, applied to identity chunks."""
+    n2, dev = plan.n2, plan.device
+    D = torch.empty((n2, n2), device=dev)
+    ar = torch.arange(chunk, device=dev)
+    for j in range(0, n2, chunk):
+        w = min(chunk, n2 - j)
+        e = torch.zeros((n2, w), device=dev)
+        e[j + ar[:w], ar[:w]] = 1.0
+        D[:, j:j + w] = plan.apply(e)
+    return D
+
+
+def k2_on_plan(label: str, plan, gen, timer, rs=(1, 64)) -> dict:
+    """K2 on a partition plan against `cells_plain` at r in `rs` (not
+    counted), timed beside the plain passes, the materialized operator's
+    `D @ x` (the library call) and the bound: the plan's weights and the
+    buffers over the HBM rate, its useful flops over the float32 peak."""
+    c1, c2 = plan.cells1, plan.cells2
+    D = materialize(plan)
+    out = {}
+    for r in rs:
+        x = torch.randn((plan.n2, r), generator=gen, device=plan.device)
+        y, y_plain = plan.apply(x), plan.apply_plain(x)
+        err = rel_err(y, y_plain)
+        require(y.shape == (plan.n2, r) and bool(torch.isfinite(y).all()),
+                f"{label} r={r}: output")
+        require(err <= 1e-5, f"{label} r={r}: K2 vs plain {err:.3e}")
+        t = (c1.apply([x]) if c1 is not None else torch.zeros(
+            (plan.t_rows, r), device=plan.device))
+        p1 = (1e3 * timer(lambda: c1.apply([x]), warmup=2, iters=20)
+              if c1 is not None else 0.0)
+        p2 = 1e3 * timer(lambda: c2.apply([x, t]), warmup=2, iters=20)
+        plain = 1e3 * timer(lambda: plan.apply_plain(x), warmup=1, iters=10)
+        nbytes = plan.nbytes() + 2 * nbytes_of(x) + nbytes_of(t)
+        b_ms, b_by = bound_ms(plan.useful_flops_per_col() * r, nbytes,
+                              PEAK_F32)
+        out[r] = dict(
+            ms=p1 + p2, k2_pass_ms=[p1, p2], plain_ms=plain,
+            library_ms=1e3 * timer(lambda: D @ x, warmup=2, iters=20),
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+            rel_err_vs_plain=err, rel_err_dense_vs_apply=rel_err(D @ x, y),
+            max_abs_err=float((y.double() - y_plain.double()).abs().max()))
+        print(f"[10 bie] {label} K2 r={r}: " + json.dumps(out[r]),
+              flush=True)
+    return out
+
+
+def bie_phase(dev, timer):
+    """Phase 10: the `helm2_bie` twin at n=2048, k=40 and the
+    `multiple_scattering` twin at k=25, 3 x 512. Per twin: the host path
+    and the card system (`setup`), K2 on its S' plan against the plain
+    passes at r=1 and 64, then the card half (`solve`: the system's MVP
+    against the dense float64 system, GMRES on the card) with the launch
+    counts set to 0 just before and read just after. Returns (cases, K2
+    launches of the solves)."""
+    from butterfly_tpu_torch.examples import helm2_bie, multiple_scattering
+    from butterfly_tpu_torch.ops.cellsp import K2
+    from butterfly_tpu_torch.ops.fused_butterfly import K1
+
+    cases, launches = {}, 0
+    for label, setup, solve, field_tol in (
+            ("helm2_bie n=2048 k=40",
+             lambda: helm2_bie.setup(2048, 40.0, device=dev),
+             helm2_bie.solve, 1e-5),
+            ("multiple_scattering k=25 3x512",
+             lambda: multiple_scattering.setup(25.0, 3, 512, device=dev),
+             multiple_scattering.solve, 1e-4)):
+        prob = setup()
+        plan = prob.card.plan
+        print(f"[10 bie] {label}: plan {prob.rec['plan_s']:.2f} s, windows "
+              f"{plan.windows}, {prob.rec['weights_mb']:.1f} MB, classes "
+              f"{plan._lr_meta}, oversized {len(plan._mega)}", flush=True)
+        k2 = k2_on_plan(label, plan, torch.Generator(device=dev).manual_seed(
+            31), timer)
+        K1.launches = 0
+        K2.launches = 0
+        rec = solve(prob)
+        torch.cuda.synchronize()
+        require(K2.launches > 0 and K1.launches == 0,
+                f"{label}: the solve launched K2 {K2.launches} and K1 "
+                f"{K1.launches} times")
+        launches += K2.launches
+        require(rec["mvp_rel"] <= 1e-6,
+                f"{label}: card MVP vs the dense system {rec['mvp_rel']:.3e}")
+        # converged: the true residual under 10 x tol or, where the card
+        # system cannot read a true residual that low even at the dense-LU
+        # density (`f32_residual_floor` above 10 x tol) and that floor
+        # comes from the plan's float32 weights, not from the corrector's
+        # complex64 (`floor_from_corrector` under 10 x tol), the Givens
+        # estimate under tol. The scattering system at k=25 is such a case:
+        # there the S' term at the density is far larger than b (it
+        # cancels against 0.5 sigma), so the plan's float32 error leaves
+        # 6.6e-6 of ||b|| and the corrector's 4.4e-7 (the twin with
+        # `--device cpu`). The density is held to helm2_bie's 2e-5
+        # against the dense LU either way.
+        require(rec["density_rel_vs_dense_lu"] <= 2e-5,
+                f"{label}: density vs dense LU "
+                f"{rec['density_rel_vs_dense_lu']:.3e}")
+        tol10 = 10 * helm2_bie.GMRES_TOL
+        require(rec["gmres_converged"] or (
+            rec["gmres_givens_res"] < helm2_bie.GMRES_TOL
+            and rec["f32_residual_floor"] > tol10
+            and rec["floor_from_corrector"] < tol10),
+            f"{label}: GMRES did not converge: {rec['gmres_iters']} "
+            f"iterations, rel res {rec['gmres_rel_res']:.3e} (Givens "
+            f"{rec['gmres_givens_res']:.3e}, float32 floor "
+            f"{rec['f32_residual_floor']:.3e}: plan "
+            f"{rec['floor_from_plan']:.3e}, corrector "
+            f"{rec['floor_from_corrector']:.3e})")
+        require(rec["k2_launches"] >= 2 * rec["gmres_iters"],
+                f"{label}: GMRES launched K2 {rec['k2_launches']} times in "
+                f"{rec['gmres_iters']} iterations")
+        require(rec["field_rel_err"] <= field_tol,
+                f"{label}: field rel err {rec['field_rel_err']:.3e}")
+        print(f"[10 bie] {label}: GMRES on the card {rec['gmres_iters']} "
+              "iterations (tol 3e-7, no restarts, interleaved real; true "
+              f"residual {rec['gmres_rel_res']:.3e}, float32 floor "
+              f"{rec['f32_residual_floor']:.3e}: plan "
+              f"{rec['floor_from_plan']:.3e}, corrector "
+              f"{rec['floor_from_corrector']:.3e}), on the host "
+              f"{rec['host_gmres_iters']} (tol 1e-10, complex float64); "
+              f"K2 r=1 {k2[1]['ms']:.4f} ms against a bound of "
+              f"{k2[1]['bound_ms']:.4f} ms ({k2[1]['bound_by']}), plain "
+              f"{k2[1]['plain_ms']:.4f} ms, D @ x {k2[1]['library_ms']:.4f} "
+              "ms", flush=True)
+        print(f"[10 bie] {label} row: " + json.dumps(rec), flush=True)
+        cases[label] = dict(k2, row=rec, launches=K2.launches)
+        del prob, plan
+        torch.cuda.empty_cache()
+    return cases, launches
+
+
+def bridge_phase(dev, timer):
+    """Phase 11: `distill_butterfly_device` of a 1024 x 512 DCT matrix
+    (NB=16, rank 64) on the card and `distill_butterfly_batch` of a
+    (4, 256, 256) batch (NB=8, rank 64), both applied by `fused_apply`
+    through K1 with the launch counts set to 0 just before and read just
+    after; then the accuracy against dense float64, K1 against
+    `pass_plain` and the plan's own apply, and the times. Returns (case,
+    K1 launches)."""
+    from butterfly_tpu_torch.fac.distill import (
+        distill_butterfly_batch,
+        distill_butterfly_device,
+    )
+    from butterfly_tpu_torch.ops.cellsp import K2
+    from butterfly_tpu_torch.ops.fused_butterfly import (
+        K1,
+        FusedButterflyPlan,
+        fused_apply,
+    )
+
+    def dct(n, m, shift=0.0):
+        x = (np.arange(n) + 0.5) / n + shift
+        return np.cos(np.pi * np.outer(x, np.arange(m))) * np.sqrt(2.0 / n)
+
+    Phi = dct(1024, 512)
+    Mb = np.stack([dct(256, 256, 0.1 * b) for b in range(4)])
+    gen = torch.Generator(device=dev).manual_seed(41)
+    r = 1024
+    x = torch.randn((512, r), generator=gen, device=dev)
+    xb = torch.randn((1024, 8), generator=gen, device=dev)
+    K1.launches = 0
+    K2.launches = 0
+    ts = time.perf_counter()
+    d = distill_butterfly_device(torch.as_tensor(Phi, dtype=torch.float32,
+                                                 device=dev), 16, rank=64)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - ts
+    ts = time.perf_counter()
+    db = distill_butterfly_batch(Mb, 8, 64, device=dev)
+    batch_s = time.perf_counter() - ts
+    y = fused_apply(d.bf, x)
+    yb = fused_apply(db.bf, xb)
+    torch.cuda.synchronize()
+    launches = K1.launches
+    require(launches > 0 and K2.launches == 0,
+            f"the bridge launched K1 {launches} and K2 {K2.launches} times")
+    inv = np.empty_like(d.row_perm)
+    inv[d.row_perm] = np.arange(d.row_perm.size)
+    rel_dev = rel_err(y[torch.as_tensor(inv, device=dev)],
+                      torch.as_tensor(Phi, device=dev) @ x.double())
+    require(rel_dev <= 1e-5,
+            f"distill_butterfly_device vs dense {rel_dev:.3e} > 1e-5")
+    dense_b = torch.cat([torch.as_tensor(Mb[b], device=dev)
+                         @ xb[b * 256:(b + 1) * 256].double()
+                         for b in range(4)])
+    rel_batch = rel_err(yb, dense_b[torch.as_tensor(db.row_perm,
+                                                    device=dev)])
+    require(rel_batch <= 1e-6,
+            f"distill_butterfly_batch vs block-diag {rel_batch:.3e} > 1e-6")
+    plan = FusedButterflyPlan(d.bf, fuse=3, device=dev)
+    y_plain = plan.apply_plain(x)
+    err = rel_err(y, y_plain)
+    require(err <= 1e-5, f"fused_apply: K1 vs plain {err:.3e}")
+    require(torch.equal(y, plan.apply(x)),
+            "fused_apply differs from the plan's own apply")
+    flops = d.bf.flops_per_col() * r
+    b_ms, b_by = bound_ms(flops, d.bf.nbytes() + nbytes_of(x)
+                          + nbytes_of(y), PEAK_F32)
+    case = dict(
+        shape=f"n=1024 m=512 NB=16 rank=64 r={r} float32 (distilled on the "
+              "card)",
+        passes=pass_split(plan), device_distill_s=device_s,
+        batch_distill_s=batch_s, rel_err_device_vs_dense=rel_dev,
+        rel_err_batch_vs_block_diag=rel_batch,
+        max_sv_discarded=d.max_sv_discarded, sigma_max=d.sigma_max,
+        ms=1e3 * timer(lambda: plan.apply(x), warmup=2, iters=20),
+        fused_apply_ms=1e3 * timer(lambda: fused_apply(d.bf, x), warmup=2,
+                                   iters=20),
+        plain_ms=1e3 * timer(lambda: plan.apply_plain(x), warmup=1,
+                             iters=20),
+        library_ms=1e3 * timer(lambda: d.bf.apply(x), warmup=1, iters=20),
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=float((y.double() - y_plain.double()).abs().max()),
+        rel_err_vs_plain=err, launches=launches)
+    print("[11 bridge] " + json.dumps(case), flush=True)
     return case, launches
 
 
@@ -855,14 +1101,7 @@ def main() -> int:
             max_abs_err=float((y.double() - y_plain.double()).abs().max()))
         del y, y_plain, t
     # dense: the operator materialized through the plan, n2 x n2 float32
-    chunk = 1024
-    D = torch.empty((ps.n2, ps.n2), device=dev)
-    ar = torch.arange(chunk, device=dev)
-    for j in range(0, ps.n2, chunk):
-        e = torch.zeros((ps.n2, chunk), device=dev)
-        e[j + ar, ar] = 1.0
-        D[:, j:j + chunk] = ps.apply(e)
-    del e
+    D = materialize(ps)
     for r in (1, rS):
         x = torch.randn((ps.n2, r), generator=gen(20 + r), device=dev)
         scale[r]["dense_ms"] = 1e3 * device_time(lambda: D @ x, warmup=2,
@@ -959,6 +1198,13 @@ def main() -> int:
     k1_retrieval, launches_R = retrieval_phase(dev, device_time)
     torch.cuda.empty_cache()
 
+    # ---- 10. the Helmholtz BIE family -------------------------------------
+    bie, launches_B = bie_phase(dev, device_time)
+
+    # ---- 11. the rest of the fac -> device bridge -------------------------
+    k1_bridge, launches_F = bridge_phase(dev, device_time)
+    torch.cuda.empty_cache()
+
     # ---- the record -----------------------------------------------------
     head = results["flagship bf16"]
     kernels = {"kernels": [{
@@ -966,7 +1212,7 @@ def main() -> int:
         "route": "cuda",
         "source": "butterfly_tpu_torch/csrc/k1_pass.cu",
         "replaces": "butterfly_tpu/ops/pallas_butterfly.py:132",
-        "launches": launches + launches_R,
+        "launches": launches + launches_R + launches_F,
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -974,14 +1220,18 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shape": head["shape"],
+        "paths": ["4 flagship", "5 real fac", "9 retrieval deep_fused",
+                  "11 bridge: fused_apply of distill_butterfly_device and "
+                  "distill_butterfly_batch"],
         "cases": {"flagship f32": results["flagship f32"], "real fac": real,
-                  "retrieval deep_fused": k1_retrieval},
+                  "retrieval deep_fused": k1_retrieval,
+                  "bridge fused_apply": k1_bridge},
     }, {
         "name": "k2_cell",
         "route": "cuda",
         "source": "butterfly_tpu_torch/csrc/k2_cell.cu",
         "replaces": "butterfly_tpu/ops/cellsp.py:95",
-        "launches": launches_E + launches_S,
+        "launches": launches_E + launches_S + launches_B,
         "max_abs_err": part["max_abs_err"],
         "ms": part["ms"],
         "plain_ms": part["plain_ms"],
@@ -990,6 +1240,8 @@ def main() -> int:
         "library_ms": part["library_ms"],
         "shape": "both cell passes of the helm2 partition apply, "
                  + part["shape"],
+        "paths": ["6 helm2 partition", "7 helm2 scale GMRES",
+                  "10 helm2_bie GMRES", "10 multiple_scattering GMRES"],
         "cases": {"helm2 partition": part,
                   "helm2 scale r=1 (GMRES)": dict(
                       scale[1], launches=row["gmres_k2_launches"],
@@ -997,6 +1249,7 @@ def main() -> int:
                   f"helm2 scale r={rS}": scale[rS],
                   "helm2 scale row": row,
                   "helm2 scale GMRES through other applies": diag,
+                  **{f"bie {k}": v for k, v in bie.items()},
                   "device solve (no kernel)": dsolve},
     }]}
     print(json.dumps(kernels))

@@ -17,7 +17,10 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.entry",
     "butterfly_tpu_torch.examples",
     "butterfly_tpu_torch.examples.fast_direct_solver",
+    "butterfly_tpu_torch.examples.helm2_bie",
     "butterfly_tpu_torch.examples.helm2_scale",
+    "butterfly_tpu_torch.examples.multiple_scattering",
+    "butterfly_tpu_torch.examples.real_fac_scale",
     "butterfly_tpu_torch.examples.retrieval",
     "butterfly_tpu_torch.examples.retrieval_lbo",
     "butterfly_tpu_torch.fac",
@@ -34,6 +37,7 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.geom.circle",
     "butterfly_tpu_torch.geom.ellipse",
     "butterfly_tpu_torch.geom.points",
+    "butterfly_tpu_torch.geom.poisson_disk",
     "butterfly_tpu_torch.models",
     "butterfly_tpu_torch.models.retrieval",
     "butterfly_tpu_torch.ops",
@@ -45,6 +49,7 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.ops.linalg",
     "butterfly_tpu_torch.ops.linop",
     "butterfly_tpu_torch.ops.packed",
+    "butterfly_tpu_torch.ops.quadrature",
     "butterfly_tpu_torch.ops.special",
     "butterfly_tpu_torch.ops.svd",
     "butterfly_tpu_torch.trees",
@@ -90,6 +95,10 @@ from butterfly_tpu_torch.entry import entry
 from butterfly_tpu_torch.models.retrieval import (
     compress_table, compress_table_deep)
 from butterfly_tpu_torch.examples import retrieval, retrieval_lbo
+from butterfly_tpu_torch.examples import (
+    helm2_bie, multiple_scattering, real_fac_scale)
+from butterfly_tpu_torch.fac.distill import (
+    distill_butterfly_batch, distill_butterfly_device)
 import numpy as np
 
 def raises(fn):
@@ -119,6 +128,11 @@ assert raises(lambda: compress_table(np.ones((128, 8)), 4))
 assert raises(lambda: compress_table_deep(np.ones((256, 64))))
 assert raises(lambda: retrieval.main(["--n", "1024"]))
 assert raises(lambda: retrieval_lbo.main(["--synthetic"]))
+assert raises(lambda: helm2_bie.main(["--n", "512", "--k", "10"]))
+assert raises(lambda: multiple_scattering.main(["--per-boundary", "64"]))
+assert raises(lambda: real_fac_scale.main(["--n", "256", "--m", "64"]))
+assert raises(lambda: distill_butterfly_batch(np.ones((64, 64)), 4, 8))
+assert raises(lambda: distill_butterfly_device(np.ones((64, 64)), 4, 8))
 print("isolated")
 """
 
