@@ -9,7 +9,8 @@ a host `LinOp` tree (such as a multilevel Helmholtz factorization) and
 `cells_from_numpy` a list of cells, `fast_direct_solver_from_numpy` a
 hierarchical-LU factorization, `compressed_table_from_numpy` a retrieval
 table's factors, `kr_corrector_from_numpy` a Kapur-Rokhlin accumulate
-corrector. Nothing here imports JAX or the JAX
+corrector, `lbo_compression_from_numpy` a compressed LBO eigenbasis.
+Nothing here imports JAX or the JAX
 package: the JAX objects are read by class name and fields.
 """
 
@@ -22,18 +23,21 @@ import torch
 
 from butterfly_tpu_torch.fac import solver as S
 from butterfly_tpu_torch.fac.distill import DistilledButterfly
+from butterfly_tpu_torch.fac.streamer import PartialFac
+from butterfly_tpu_torch.models.lbo import LboCompression
 from butterfly_tpu_torch.models.retrieval import CompressedTable
 from butterfly_tpu_torch.ops import linop as L
 from butterfly_tpu_torch.ops.butterfly import UniformButterfly
 from butterfly_tpu_torch.ops.cellsp import Cell
 from butterfly_tpu_torch.ops.quadrature import KrAccumCorrector
+from butterfly_tpu_torch.trees import IntervalTree, Tree, TreeNode
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
 
 __all__ = ["cells_from_numpy", "compressed_table_from_numpy",
            "distilled_from_numpy",
            "fast_direct_solver_from_numpy", "kr_corrector_from_numpy",
-           "linop_from_numpy", "uniform_butterfly_from_numpy"]
+           "lbo_compression_from_numpy", "linop_from_numpy", "uniform_butterfly_from_numpy"]
 
 
 def _tensor(a, device, dtype):
@@ -179,3 +183,25 @@ def fast_direct_solver_from_numpy(fds) -> S.FastDirectSolver:
     out.__dict__.update({k: v for k, v in vars(fds).items() if k != "_root"})
     out._root = node(fds._root)
     return out
+
+
+def lbo_compression_from_numpy(lbo) -> LboCompression:
+    """The port's `LboCompression` for a JAX-package one: the same
+    `PartialFac` operators (Psi and the W factors, carried with
+    `linop_from_numpy`), frequencies, row-tree permutation and dense bytes.
+    The row tree comes across as its root and permutation, the row cut as
+    bare nodes with the same index ranges, and the column tree is rebuilt
+    over the same interval and depth with the frequencies attached."""
+    fac, rt, ct = lbo.fac, lbo.row_tree, lbo.col_tree
+    perm = np.array(rt.perm, dtype=np.int64)
+    row_tree = Tree(TreeNode(None, 0, 0, perm.size), perm)
+    depth = max(nd.depth for nd in ct.root.subtree_nodes())
+    col_tree = IntervalTree(ct.a, ct.b, arity=ct.arity, depth=depth)
+    freqs = np.array(lbo.freqs, dtype=np.float64)
+    col_tree.set_points(freqs)
+    row_nodes = [TreeNode(None, nd.depth, nd.i0, nd.i1)
+                 for nd in fac.row_nodes]
+    pf = PartialFac(col_tree.root, row_nodes, linop_from_numpy(fac.Psi),
+                    [linop_from_numpy(w) for w in fac.W])
+    return LboCompression(fac=pf, freqs=freqs, row_tree=row_tree,
+                          col_tree=col_tree, dense_bytes=int(lbo.dense_bytes))

@@ -17,8 +17,11 @@ Each size prints one JSON row with the JAX script's keys, except
 `mega_streamed_mb` (the port streams no weights from the host), plus
 `apply_ms_r1` (the apply at one column, the shape GMRES runs),
 `gmres_ms_per_iter`, `gmres_residuals` (the relative residual history,
-the true final residual last), `gmres_k2_launches` and `windows` (where
-the plan's low-rank windows came from: "device_f64" or "host_chains").
+the true final residual last), `gmres_k2_launches`, `windows` (where
+the plan's low-rank windows came from: "device_f64" or "host_chains"),
+`lr_classes` (each chunk's size class, members, rank, probe residual and
+its escalation steps) and `setup_plan_peak_mb` (the plan's peak device
+memory above what was allocated before it).
 Times are medians of CUDA-event timings on the card; where the plan lies
 on the CPU, they are None (not measured). `run_one` =
 `measure(setup(...))`; `chip_smoke.py` calls the two halves itself to
@@ -89,10 +92,25 @@ class Helm2Scale:
         return torch.from_numpy(b2).to(self.plan.device)
 
 
-def setup(n: int, ppw: float, leaf: int, device=None) -> Helm2Scale:
-    """Factorize on the host (float64) and compile the plan on `device`
-    (default: the card)."""
-    device = resolve_device(device)
+@dataclasses.dataclass
+class Helm2Fac:
+    """One size's host factorization: the kernel, the ellipse's points,
+    normals and quadrature weights (input order), the tree and the
+    multilevel operator (tree order)."""
+
+    helm: Helm2
+    k: float
+    X: np.ndarray
+    Nrm: np.ndarray
+    w: np.ndarray
+    tree: Quadtree
+    A: object
+    rec: dict
+
+
+def factorize(n: int, ppw: float, leaf: int) -> Helm2Fac:
+    """The combined-field operator at n points, factorized on the host in
+    float64."""
     ell = Ellipse(1.0, 0.7, (0.0, 0.0), 0.3)
     X, _, Nrm, w = ell.sample_linspaced(n)
     perimeter = float(np.sum(w))
@@ -109,23 +127,50 @@ def setup(n: int, ppw: float, leaf: int, device=None) -> Helm2Scale:
     A = fac_helm2.make_multilevel(helm, tree, tree)
     rec["setup_fac_s"] = time.perf_counter() - t0
     log(f"  fac setup: {rec['setup_fac_s']:.1f} s")
+    return Helm2Fac(helm, k, X, Nrm, w, tree, A, rec)
 
+
+def compile_plan(fac: Helm2Fac, device=None) -> Helm2Scale:
+    """Compile the factorization into the partition plan on `device`
+    (default: the card). On the card the row records the plan's peak
+    device memory."""
+    device = resolve_device(device)
+    n = fac.A.shape[0]
+    rec = dict(fac.rec)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
     t0 = time.perf_counter()
-    plan = partition_apply_plan(A, device=device)
-    if device.type == "cuda":
+    plan = partition_apply_plan(fac.A, device=device)
+    if on_card:
         torch.cuda.synchronize(device)
     rec["setup_plan_s"] = time.perf_counter() - t0
+    rec["setup_plan_peak_mb"] = (
+        (torch.cuda.max_memory_allocated(device) - base) / 1e6 if on_card
+        else None)
     rec["weights_mb"] = plan.nbytes() / 1e6
     rec["dense_mb"] = n * n * 16 / 1e6
     rec["compression_ratio"] = plan.nbytes() / (n * n * 16)
-    rec["num_mega_blocks"] = len(plan._mega)
+    rec["num_mega_blocks"] = plan.num_oversized
     rec["windows"] = plan.windows
+    rec["lr_classes"] = plan._lr_meta
     log(f"  plan: {rec['setup_plan_s']:.1f} s, {rec['weights_mb']:.1f} MB "
         f"({rec['compression_ratio']:.4f} of dense c128), low-rank windows "
-        f"{plan.windows}")
-    wp2 = torch.as_tensor(np.repeat(w[tree.perm], 2), dtype=torch.float32,
-                          device=device)
-    return Helm2Scale(helm, k, X[tree.perm], Nrm[tree.perm], wp2, plan, rec)
+        f"{plan.windows}, peak {rec['setup_plan_peak_mb']} MB")
+    tree = fac.tree
+    wp2 = torch.as_tensor(np.repeat(fac.w[tree.perm], 2),
+                          dtype=torch.float32, device=device)
+    return Helm2Scale(fac.helm, fac.k, fac.X[tree.perm], fac.Nrm[tree.perm],
+                      wp2, plan, rec)
+
+
+def setup(n: int, ppw: float, leaf: int, device=None) -> Helm2Scale:
+    """Factorize on the host (float64) and compile the plan on `device`
+    (default: the card)."""
+    device = resolve_device(device)
+    return compile_plan(factorize(n, ppw, leaf), device)
 
 
 def measure(prob: Helm2Scale, queries: int = 64) -> dict:

@@ -1,19 +1,29 @@
 """Compressed retrieval on the card: three formats of one table, and
 BASELINE config 2 at 1M x 128.
 
-Twin of the JAX package's `examples/retrieval_lbo.py`, for its two paths
-that need no mesh:
+Twin of the JAX package's `examples/retrieval_lbo.py`, with its three
+tables:
 
-- `--synthetic`: a 4096 x 256 DCT table (the LBO-eigenvector analogue),
-  rows scaled to unit RMS, 256 unit queries, in three formats, each
-  recall-checked against exact dense scoring:
+- the LBO table (the default): `icosphere(--subdiv)` (7: 163,842
+  vertices), its FEM Laplace-Beltrami pencil (`Trimesh.lbo_fem`), the
+  `--num-eigs` lowest eigenvectors by host shift-invert
+  `eigsh(L, k, M=M, sigma=0)` from a seeded start vector, so that the
+  table is repeatable although the sphere's eigenvalues are multiple (or
+  loaded from `--phi`; computed, they are saved there), rows in octree
+  order (`Octree(verts, leaf_size=64)`, the reference's bf_lbo row tree);
+- `--synthetic`: a 4096 x 256 DCT table (the LBO-eigenvector analogue).
+
+Either table goes through the same three formats, rows scaled to unit RMS,
+256 unit queries, each recall-checked against exact dense scoring:
     one_level   `compress_table` (rank 64)
     deep        `compress_table_deep` (tol 1e-3, col_depth 3, leaf 128),
                 scored through its packed `StagePlan`
-    deep_fused  `distill_butterfly` of the deep fac to NB=16 at rank 80,
-                scored through `FusedButterflyPlan` on the fused pass
-                kernel K1 (plain passes on the CPU); ids are mapped back to
-                table rows through `dist.row_perm`.
+    deep_fused  `distill_butterfly` of the deep fac (NB the largest power
+                of two up to n/1024, at least 16; rank d/NB + 64), scored
+                through `FusedButterflyPlan` on the fused pass kernel K1
+                (plain passes on the CPU); ids are mapped back to table
+                rows through `dist.row_perm`.
+
 - `--config1m`: BASELINE config 2, a 1M x 128 table of per-block rank-8
   rows plus 1e-3 noise (`default_rng(7)`), compressed at rank 32: lookup
   against the dense rows and against the factors multiplied out in float64
@@ -22,13 +32,13 @@ that need no mesh:
   candidates, gather, exact rescoring) and, unless `--skip-deep-1m`, the
   deep format at 1M.
 
-The LBO table itself (icosphere mesh, FEM Laplace-Beltrami eigenvectors)
-waits for the mesh slice; without `--synthetic` or `--config1m` the script
-raises. Scoring runs in IEEE float32 and top-k is exact (`torch.topk`):
-the TPU's `approx_max_k` and its one-pass bf16 products have no
-counterpart, so recall may differ from the TPU record either way.
+Scoring runs in IEEE float32 and top-k is exact (`torch.topk`): the TPU's
+`approx_max_k` and its one-pass bf16 products have no counterpart, so
+recall may differ from the TPU record either way.
 
 Usage:
+  python -m butterfly_tpu_torch.examples.retrieval_lbo --subdiv 7 \
+      --num-eigs 1024 --phi /path/lbo_phi1024.npy
   python -m butterfly_tpu_torch.examples.retrieval_lbo --synthetic
   python -m butterfly_tpu_torch.examples.retrieval_lbo --config1m
 
@@ -44,6 +54,7 @@ import os
 import time
 
 import numpy as np
+import scipy.sparse.linalg as spla
 import torch
 
 from butterfly_tpu_torch.examples.retrieval import (
@@ -54,6 +65,7 @@ from butterfly_tpu_torch.examples.retrieval import (
     log,
 )
 from butterfly_tpu_torch.fac.distill import distill_butterfly
+from butterfly_tpu_torch.geom.trimesh import icosphere
 from butterfly_tpu_torch.models.retrieval import (
     compress_table,
     compress_table_deep,
@@ -62,8 +74,10 @@ from butterfly_tpu_torch.models.retrieval import (
 )
 from butterfly_tpu_torch.ops.butterfly import _f32_precision
 from butterfly_tpu_torch.ops.fused_butterfly import FusedButterflyPlan
+from butterfly_tpu_torch.ops.linalg import _v0
+from butterfly_tpu_torch.trees import Octree
 from butterfly_tpu_torch.utils.device import resolve_device
-from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
+from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 
 # candidates the compressed scan keeps for exact re-ranking (config1m)
 RERANK_K = 1024
@@ -79,21 +93,72 @@ def synthetic_table() -> np.ndarray:
     return dct_table(4096, 256).astype(np.float32)
 
 
-def run_table(Phi: np.ndarray, args, dev):
-    """The three formats of one table. Returns (rows, fused): fused holds
-    the deep_fused plan, its distillation, the queries on the device and
-    the exact top-100, or None when that format did not run."""
+def lbo_table(subdiv: int, num_eigs: int, phi: str | None = None):
+    """The LBO eigenvector table of `icosphere(subdiv)`: the `num_eigs`
+    lowest eigenvectors of its FEM pencil by host shift-invert `eigsh`, or
+    those saved at `phi`, float32, rows in octree order. Returns (table,
+    eigsh seconds or None when loaded)."""
+    mesh = icosphere(subdiv)
+    if phi and os.path.exists(phi):
+        Phi = np.load(phi).astype(np.float32)
+        check(Phi.shape == (mesh.num_verts, num_eigs),
+              f"--phi {phi} holds a table of shape {Phi.shape}; "
+              f"icosphere({subdiv}) with {num_eigs} eigenvectors needs "
+              f"{(mesh.num_verts, num_eigs)}", InvalidArgumentsError)
+        log(f"loaded Phi {Phi.shape} from {phi}")
+        eig_s = None
+    else:
+        L, M = mesh.lbo_fem()
+        t0 = time.perf_counter()
+        _, Phi = spla.eigsh(L, k=num_eigs, M=M, sigma=0.0, which="LM",
+                            v0=_v0(mesh.num_verts))
+        eig_s = time.perf_counter() - t0
+        log(f"eigsh k={num_eigs} on {mesh.num_verts} vertices: "
+            f"{eig_s:.1f} s")
+        Phi = Phi.astype(np.float32)
+        if phi:
+            np.save(phi, Phi)
+    # octree row order (reference: bf_lbo's octree row tree,
+    # examples/lbo/bf_lbo.c:223)
+    return Phi[Octree(mesh.verts, leaf_size=64).perm], eig_s
+
+
+def prepare_table(Phi: np.ndarray) -> np.ndarray:
+    """The table as every format scores it: rows scaled to unit RMS (scores
+    are O(1)), zero rows padded to a multiple of 128 (256 above n=16384),
+    float32."""
     n, d = Phi.shape
-    # scale rows to unit RMS so scores are O(1)
     Phi = Phi * (np.sqrt(n / max(np.linalg.norm(Phi) ** 2, 1e-30))
                  * np.sqrt(d))
-    # pad rows so every block format divides evenly
-    NBpad = 256 if n > 16384 else 16
+    # one_level's blocks are 128 rows (the JAX script pads to 16 up to
+    # n=16384, which leaves the LBO tables of icosphere(3) to (6) a ragged
+    # last block)
+    NBpad = 256 if n > 16384 else 128
     n_pad = -(-n // NBpad) * NBpad
     if n_pad != n:
-        Phi = np.concatenate(
-            [Phi, np.zeros((n_pad - n, d), np.float32)], axis=0)
-    Phi = Phi.astype(np.float32)
+        Phi = np.concatenate([Phi, np.zeros((n_pad - n, d), Phi.dtype)],
+                             axis=0)
+    return Phi.astype(np.float32)
+
+
+def fused_shape(n_pad: int, d: int, rank=None) -> tuple[int, int]:
+    """(NB, rank) of the deep_fused format: NB the largest power of two up
+    to n_pad/1024 (at least 16) that divides both dims, rank d/NB + 64
+    unless given."""
+    NBf = 1 << max(4, int(np.log2(max(16, n_pad // 1024))))
+    while NBf > 2 and (n_pad % NBf or d % NBf or d // NBf < 2):
+        NBf //= 2
+    return NBf, rank or min(d // NBf + 64, d)
+
+
+def run_table(Phi: np.ndarray, args, dev):
+    """The three formats of one table. Returns (rows, fused): fused holds
+    the deep_fused plan, its distillation, the queries on the device
+    (transposed, `x`), the exact scores and top-100 and the prepared table,
+    or None when that format did not run."""
+    n, d = Phi.shape
+    Phi = prepare_table(Phi)
+    n_pad = Phi.shape[0]
     log(f"table: {n} rows (padded {n_pad}) x {d}, "
         f"dense {Phi.nbytes/1e6:.0f} MB")
     dense_mb = n_pad * d * 4 / 1e6
@@ -163,11 +228,7 @@ def run_table(Phi: np.ndarray, args, dev):
 
     if "fused" in formats:
         t0 = time.time()
-        # largest power of two <= n_pad/1024 that divides both dims
-        NBf = 1 << max(4, int(np.log2(max(16, n_pad // 1024))))
-        while NBf > 2 and (n_pad % NBf or d % NBf or d // NBf < 2):
-            NBf //= 2
-        rank_fused = args.rank_fused or min(d // NBf + 64, d)
+        NBf, rank_fused = fused_shape(n_pad, d, args.rank_fused)
         dist = distill_butterfly(dt.fac.as_linop(), NBf, rank=rank_fused,
                                  dtype=torch.float32, device=dev)
         plan = FusedButterflyPlan(dist.bf, fuse=8, device=dev)
@@ -185,7 +246,7 @@ def run_table(Phi: np.ndarray, args, dev):
                            compression_ratio=round(mb_fp / dense_mb, 3),
                            setup_s=setup_s))
         fused = {"plan": plan, "dist": dist, "x": x, "true100": true100,
-                 "exact_scores": exact_scores}
+                 "exact_scores": exact_scores, "table": Phi}
     return results, fused
 
 
@@ -379,8 +440,13 @@ def parse_args(argv=None):
     ap.add_argument("--rank-fused", type=int, default=None)
     ap.add_argument("--deep-tol", type=float, default=1e-3)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--phi", default=None,
+                    help=".npy eigenvector table: loaded if it exists, "
+                         "else computed and saved there")
+    ap.add_argument("--subdiv", type=int, default=7)
+    ap.add_argument("--num-eigs", type=int, default=1024)
     ap.add_argument("--synthetic", action="store_true",
-                    help="the 4096 x 256 DCT table")
+                    help="the 4096 x 256 DCT table instead of the LBO table")
     ap.add_argument("--config1m", action="store_true",
                     help="BASELINE config 2: compressed lookup + scoring "
                          "on a 1M x 128 table")
@@ -395,15 +461,16 @@ def parse_args(argv=None):
 
 def main(argv=None) -> list:
     args = parse_args(argv)
-    if not (args.synthetic or args.config1m):
-        raise InvalidArgumentsError(
-            "the LBO eigenvector table (icosphere mesh, FEM Laplace-Beltrami "
-            "solve) is not ported yet: pass --synthetic or --config1m")
     dev = resolve_device(args.device)
     if args.config1m:
         out = run_config1m(args, dev)
-    else:
+    elif args.synthetic:
         out, _ = run_table(synthetic_table(), args, dev)
+    else:
+        Phi, eig_s = lbo_table(args.subdiv, args.num_eigs, args.phi)
+        out, _ = run_table(Phi, args, dev)
+        for r in out:
+            r.update(table=f"lbo icosphere({args.subdiv})", eigsh_s=eig_s)
     if args.out:
         if os.path.exists(args.out):  # merge: replace same-format rows
             with open(args.out) as f:

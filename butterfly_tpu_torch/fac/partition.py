@@ -19,26 +19,38 @@ partition compiles into TWO chained block-sparse cell passes
 Separated blocks are factored as LOW-RANK Z ~= U V on the device: a
 randomized sketch Y = Z Omega (a `torch.Generator` seeded 7 in place of
 `jax.random.key(7)`), QR, then V solved by least squares
-V = (Q^T Q)^{-1} Q^T Z, so the float32 QR's orthogonality error cancels;
-the per-block residual is measured by an 8-column random probe and the
-rank escalated until it meets `_LR_TOL` or stops improving (the float32
-floor). All of it runs in IEEE float32 (no TF32). Ranks may differ from the
-JAX package's, whose random stream differs; the applies agree.
+V = (Q^T Q)^{-1} Q^T Z; the per-block residual is measured by an 8-column
+random probe and the rank escalated until it meets `_LR_TOL` or stops
+falling. The windows, the factoring and the probe are float64; U and V
+are cast to float32 for K2. Factored in float32, as the JAX package does,
+a class-4096 window of exact rank below 176 read 1.7-2.1e-6 at ranks 176,
+352 and 704 (float32 rounding of the sketch, the QR and the 4096-long
+probe sums), which the JAX package's escalation takes for a floor; in
+float64 it reads 4e-15 at rank 176, 4e-8 once U and V are rounded to
+float32. Ranks may differ from the JAX package's, whose random stream
+differs; the applies agree.
 
 Blocks wider than the largest size class (oversized) keep their native
-butterfly chain and apply through their own packed `StagePlan`: gather the
-block's input rows, apply the sub-plan, `index_add_` into y.
+butterfly chains, all packed into ONE float64 `StagePlan` whose buckets
+batch the units of every block: gather x into its stacked layout, apply,
+`index_add_` into y. These chains' products cancel: || |F_L|...|F_1| |x| ||
+is 8e3 to 8e8 times || F_L...F_1 x || for the scale twin's combined-field
+operator at n=65536, which no diagonal rescaling of the factors changes,
+and in float32 each of its 166 blocks lost 1.2e-6 to 9.7e-5 of its
+product (`examples/partition_floor.py` measures both). Packed together,
+the whole r=1 apply took 19.3 ms on an H100, against 90.4 ms with one
+float32 plan a block, whose launches bound it.
 
 What changed for the card:
 - the member windows are sliced from the whole operator materialized on
-  the device in float64 when it fits (then cast to float32 batch by batch,
-  as the host-chain path casts the windows it multiplies out in float64):
+  the device in float64 when it fits (the host-chain path multiplies them
+  out in float64 too), and factored in float64:
   by an explicit test against `torch.cuda.mem_get_info()` on the card, by
   the JAX package's 2 GB gather-buffer limit on the CPU
   (`dense_materialize_limit_bytes=0` still forces the host-chain path); a
   failure there raises instead of falling back to the host. The JAX
-  package materializes in float32, whose rounding caps the plan's
-  accuracy, and at n=16384 took its host-chain path instead;
+  package materializes and factors in float32, whose rounding caps the
+  plan's accuracy, and at n=16384 took its host-chain path instead;
 - no HBM guess from the device kind, no pinning or streaming of oversized
   blocks' weights, no dispatch throttle: the card's 80 GB holds them;
 - `apply_with` and jit are gone: `apply(x)` runs eagerly.
@@ -67,7 +79,7 @@ from butterfly_tpu_torch.ops.cellsp import (
     CellPlan,
     cells_from_dense_block,
 )
-from butterfly_tpu_torch.ops.linop import LinOp, Scaled
+from butterfly_tpu_torch.ops.linop import LinOp
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 from butterfly_tpu_torch.utils.logging import log_info
@@ -83,7 +95,7 @@ _HOST_GATHER_LIMIT_BYTES = 2 << 30
 _LR_TOL = 3e-7
 # first rank tried: members' largest unit rank (embedded) plus this margin
 _RANK_MARGIN = 32
-# device bytes of member windows factored in one batch
+# device bytes of the float64 member windows factored in one batch
 _BATCH_BUDGET_BYTES = 1 << 30
 # host threads multiplying member chains out on the host-chain path
 _HOST_WORKERS = 2
@@ -172,13 +184,81 @@ def _size_classes(sizes, tiles):
     return out
 
 
+def _split_blocks(op: LinOp, complex_: bool, max_tile: int):
+    """The operator's positioned chains, split into dense blocks (each
+    with its embedded float32 weights), low-rank blocks up to `max_tile`
+    and oversized blocks, all in interleaved real coordinates."""
+    mul = 2 if complex_ else 1
+    chains: list = []
+    packed_mod._flatten(op, 0, 0, chains)
+    dense_blks: list[tuple[_Blk, np.ndarray]] = []
+    lr_blks: list[_Blk] = []
+    for c in chains:
+        nr_c = c.factors[-1].out_dim
+        nc_c = c.factors[0].in_dim
+        blk = _Blk(mul * c.i0, mul * c.j0, mul * nr_c, mul * nc_c)
+        f0 = c.factors[0]
+        if (len(c.factors) == 1 and len(f0.gemms) == 1 and not f0.scales
+                and f0.gemms[0].in_off == 0 and f0.gemms[0].out_off == 0):
+            Z = f0.gemms[0].data
+            W = (_interleave_embed(Z) if complex_
+                 else np.asarray(Z, np.float32))
+            dense_blks.append((blk, W))
+        else:
+            # unit rank proxy: min dim for GEMMs, entry count for scale
+            # units (a ScaleUnit is a scaled sub-permutation, rank = L)
+            blk.rmax = max(
+                [min(u.data.shape) for f in c.factors for u in f.gemms]
+                + [u.weights.size for f in c.factors for u in f.scales]
+            )
+            blk.chain = c
+            lr_blks.append(blk)
+    # oversized blocks keep their native butterfly chains, which the plan
+    # packs into a stage plan of their own
+    mega_blks = [b for b in lr_blks if b.span > max_tile]
+    lr_blks = [b for b in lr_blks if b.span <= max_tile]
+    return chains, dense_blks, lr_blks, mega_blks
+
+
+def _class_groups(lr_blks, bf_tiles):
+    """[(cls, members)]: the low-rank blocks by size class, each class cut
+    into chunks of `_BATCH_BUDGET_BYTES` of float64 windows."""
+    keys = _size_classes([b.span for b in lr_blks], bf_tiles)
+    groups = []
+    for cls in sorted(set(keys)):
+        members = [b for b, k in zip(lr_blks, keys) if k == cls]
+        gmax = max(1, _BATCH_BUDGET_BYTES // (cls * cls * 8))
+        for g0 in range(0, len(members), gmax):
+            groups.append((cls, members[g0:g0 + gmax]))
+    return groups
+
+
+def _start_rank(members, mul: int, npad: int) -> int:
+    """First rank tried for a chunk: its largest unit rank (embedded) plus
+    `_RANK_MARGIN`, in 16s, at most half the window."""
+    rmax = max(b.rmax for b in members)
+    rho = min(mul * rmax + _RANK_MARGIN, npad // 2)
+    return max(16, (rho + 15) // 16 * 16)
+
+
+def _host_window(b: _Blk, npad: int, complex_: bool) -> np.ndarray:
+    """(npad, npad) float64 member window of block b, its chain multiplied
+    out on the host in float64 and embedded at the block's shifts."""
+    Z = _materialize_chain(b.chain)
+    Zr = (_interleave_embed(Z, np.float64) if complex_
+          else np.asarray(Z, np.float64))
+    Mz = np.zeros((npad, npad), np.float64)
+    Mz[b.shift_r:b.shift_r + b.nr, b.shift_c:b.shift_c + b.nc] = Zr
+    return Mz
+
+
 def _slice_batch(M: torch.Tensor, members, npad: int) -> torch.Tensor:
-    """(B, npad, npad) float32 member windows of the materialized operator
+    """(B, npad, npad) float64 member windows of the materialized operator
     M, each masked to its block's true rows and columns (indices past M's
-    edge are clamped, then masked) and rounded to float32 once."""
+    edge are clamped, then masked)."""
     dev = M.device
     ar = torch.arange(npad, device=dev)
-    out = torch.empty((len(members), npad, npad), dtype=torch.float32,
+    out = torch.empty((len(members), npad, npad), dtype=torch.float64,
                       device=dev)
     for i, b in enumerate(members):
         ri = (b.i0 - b.shift_r + ar).clamp_(max=M.shape[0] - 1)
@@ -190,33 +270,79 @@ def _slice_batch(M: torch.Tensor, members, npad: int) -> torch.Tensor:
     return out
 
 
-def _factor_batch(Z: torch.Tensor, rho: int, seed: int = 7):
-    """Z: (B, npad, npad) float32 on the device. Returns (U, V, rel): U
-    (B, npad, rho), V (B, rho, npad), rel = max over members of
-    probe-residual / max member norm. V is the least-squares fit against
-    Q, so float32 QR orthogonality error cancels."""
-    gen = torch.Generator(device=Z.device).manual_seed(seed)
-    npad = Z.shape[2]
-    Om = torch.randn((npad, rho), generator=gen, device=Z.device)
-    w = torch.randn((npad, 8), generator=gen, device=Z.device)
+def _sketch(npad: int, rho: int, device, seed: int = 7):
+    """The sketch Omega (npad, rho) and the probe w (npad, 8), drawn in
+    float32 from one generator, so that factorings of one window in float32
+    and in float64 share them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Om = torch.randn((npad, rho), generator=gen, device=device)
+    w = torch.randn((npad, 8), generator=gen, device=device)
+    return Om, w
+
+
+def _low_rank(Z: torch.Tensor, Om: torch.Tensor):
+    """Q (B, npad, rho), V (B, rho, npad) with Z ~= Q V, in Z's dtype. V is
+    the least-squares fit against Q, so QR orthogonality error cancels."""
     with _f32_precision("highest"):
-        Q, _ = torch.linalg.qr(Z @ Om)
+        Q, _ = torch.linalg.qr(Z @ Om.to(Z.dtype))
         Qt = Q.transpose(1, 2)
         V = torch.linalg.solve(Qt @ Q, Qt @ Z)
+    return Q, V
+
+
+def _probe_rel(Z, Q, V, w) -> float:
+    """max over members of the probe residual ||Z w - Q (V w)|| over the
+    largest member's ||Z w||, computed in Z's dtype."""
+    with _f32_precision("highest"):
+        w = w.to(Z.dtype)
         Zw = Z @ w
-        Rw = Zw - Q @ (V @ w)
+        Rw = Zw - Q.to(Z.dtype) @ (V.to(Z.dtype) @ w)
     nrm = Zw.square().sum(dim=(1, 2)).sqrt()
     res = Rw.square().sum(dim=(1, 2)).sqrt()
-    rel = res.max() / nrm.max().clamp(min=1e-30)
-    return Q, V, float(rel)
+    return float(res.max() / nrm.max().clamp(min=1e-30))
+
+
+def _factor_batch(Z: torch.Tensor, rho: int, seed: int = 7):
+    """Z: (B, npad, npad) on the device, factored and probed in its own
+    dtype. Returns (U, V, rel): U (B, npad, rho), V (B, rho, npad), rel =
+    max over members of probe-residual / max member norm."""
+    Om, w = _sketch(Z.shape[2], rho, Z.device, seed)
+    Q, V = _low_rank(Z, Om)
+    return Q, V, _probe_rel(Z, Q, V, w)
+
+
+def _escalate(Zd: torch.Tensor, rho: int, tol: float):
+    """Factor the batch Zd at rank rho, doubling rho until the probe
+    residual meets `tol`, reaches half the window, or stops falling (a
+    residual above the last one: the smaller rank is then kept). Returns
+    (U, V, rel, rho, [(rho, rel), ...])."""
+    npad = Zd.shape[2]
+    seq, prev = [], None
+    while True:
+        U, V, rel = _factor_batch(Zd, rho, seed=7)
+        seq.append((rho, rel))
+        if rel <= tol or rho >= npad // 2:
+            break
+        if prev is not None and rel > prev[2]:
+            U, V, rel, rho = prev
+            log_info("partition: class %d rel %.1e stopped falling; keeping "
+                     "rho %d", npad, rel, rho)
+            break
+        prev = (U, V, rel, rho)
+        rho_new = min(npad // 2, max(rho * 2, rho + 32))
+        log_info("partition: class %d rho %d rel %.1e > %.0e; retrying at "
+                 "rho %d", npad, rho, rel, tol, rho_new)
+        rho = rho_new
+    return U, V, rel, rho, seq
 
 
 def _tiles(U: torch.Tensor, V: torch.Tensor, rho_pad: int):
-    """U (B, npad, rho), V (B, rho, npad) -> (V tiles, U tiles), each
-    (n, GM, GK): V tile (b, rr, c) maps x block c of member b to t rows
+    """U (B, npad, rho), V (B, rho, npad) -> float32 (V tiles, U tiles),
+    each (n, GM, GK): V tile (b, rr, c) maps x block c of member b to t rows
     rr, U tile (b, rr, c) maps t block c to y rows rr."""
     B, npad, rho = U.shape
     rp, npc = rho_pad // GM, npad // GK
+    U, V = U.to(torch.float32), V.to(torch.float32)
     Vp = torch.nn.functional.pad(V, (0, 0, 0, rho_pad - rho))
     Vt = Vp.reshape(B, rp, GM, npc, GK).permute(0, 1, 3, 2, 4)
     Up = torch.nn.functional.pad(U, (0, rho_pad - rho))
@@ -241,36 +367,8 @@ class PartitionPlan:
         self.shape = (n_c, m_c)
         self.n2, self.m2 = n_c * mul, m_c * mul
 
-        chains: list = []
-        packed_mod._flatten(op, 0, 0, chains)
-        dense_blks: list[tuple[_Blk, np.ndarray]] = []
-        lr_blks: list[_Blk] = []
-        for c in chains:
-            nr_c = c.factors[-1].out_dim
-            nc_c = c.factors[0].in_dim
-            blk = _Blk(mul * c.i0, mul * c.j0, mul * nr_c, mul * nc_c)
-            f0 = c.factors[0]
-            if (len(c.factors) == 1 and len(f0.gemms) == 1 and not f0.scales
-                    and f0.gemms[0].in_off == 0 and f0.gemms[0].out_off == 0):
-                Z = f0.gemms[0].data
-                W = (_interleave_embed(Z) if self._complex
-                     else np.asarray(Z, np.float32))
-                dense_blks.append((blk, W))
-            else:
-                # unit rank proxy: min dim for GEMMs, entry count for scale
-                # units (a ScaleUnit is a scaled sub-permutation, rank = L)
-                blk.rmax = max(
-                    [min(u.data.shape) for f in c.factors for u in f.gemms]
-                    + [u.weights.size for f in c.factors
-                       for u in f.scales]
-                )
-                blk.chain = c
-                lr_blks.append(blk)
-
-        # oversized blocks keep their native butterfly chains and apply
-        # through their OWN packed stage plans
-        mega_blks = [b for b in lr_blks if b.span > bf_tiles[-1]]
-        lr_blks = [b for b in lr_blks if b.span <= bf_tiles[-1]]
+        chains, dense_blks, lr_blks, mega_blks = _split_blocks(
+            op, self._complex, bf_tiles[-1])
         log_info("partition: %d dense blocks, %d low-rank blocks, %d "
                  "oversized", len(dense_blks), len(lr_blks), len(mega_blks))
 
@@ -293,13 +391,7 @@ class PartitionPlan:
         dev_tiles1: list = []   # V tile stacks (device)
         dev_tiles2: list = []   # U tile stacks (device)
         if lr_blks:
-            keys = _size_classes([b.span for b in lr_blks], bf_tiles)
-            groups = []
-            for cls in sorted(set(keys)):
-                members = [b for b, k in zip(lr_blks, keys) if k == cls]
-                gmax = max(1, _BATCH_BUDGET_BYTES // (cls * cls * 4))
-                for g0 in range(0, len(members), gmax):
-                    groups.append((cls, members[g0:g0 + gmax]))
+            groups = _class_groups(lr_blks, bf_tiles)
 
             # fast path: materialize the WHOLE operator on the device
             # once, in float64, and slice member windows from it; the host
@@ -320,18 +412,8 @@ class PartitionPlan:
                      "in float64" if M is not None
                      else "multiplied out on the host in float64")
 
-            def embed_member(b, npad):
-                Z = _materialize_chain(b.chain)
-                Zr = (_interleave_embed(Z) if self._complex
-                      else np.asarray(Z, np.float32))
-                Mz = np.zeros((npad, npad), np.float32)
-                Mz[b.shift_r:b.shift_r + b.nr,
-                   b.shift_c:b.shift_c + b.nc] = Zr
-                return Mz
-
             cls_state: dict = {}  # cls -> (rho_star, rel_floor) memo so
-            # later chunks of a class skip the escalation (the f32 floor is
-            # a property of the class size, not the chunk)
+            # later chunks of a class skip the escalation
             with ThreadPoolExecutor(max_workers=_HOST_WORKERS) as pool:
                 for cls, members in groups:
                     npad = cls
@@ -339,39 +421,19 @@ class PartitionPlan:
                         Zd = _slice_batch(M, members, npad)
                     else:
                         Mb = np.stack(list(pool.map(
-                            lambda b: embed_member(b, npad), members)))
+                            lambda b: _host_window(b, npad, self._complex),
+                            members)))
                         Zd = torch.from_numpy(Mb).to(device)
 
                     tol_eff = _LR_TOL
-                    rmax = max(b.rmax for b in members)
-                    rho = min(mul * rmax + _RANK_MARGIN, npad // 2)
-                    rho = max(16, (rho + 15) // 16 * 16)
+                    rho = _start_rank(members, mul, npad)
                     if cls in cls_state:
                         rho = max(rho, cls_state[cls][0])
                         tol_eff = max(_LR_TOL, 1.5 * cls_state[cls][1])
-                    prev = None
-                    while True:
-                        U, V, rel = _factor_batch(Zd, rho, seed=7)
-                        if rel <= tol_eff or rho >= npad // 2:
-                            break
-                        if prev is not None and rel > 0.5 * prev[2]:
-                            # rank escalation stopped helping: the residual
-                            # is the f32 factorization floor, not
-                            # truncation — keep the SMALLER rank
-                            U, V, rel, rho = prev
-                            log_info("partition: class %d rel %.1e is the "
-                                     "f32 floor; keeping rho %d", cls, rel,
-                                     rho)
-                            break
-                        prev = (U, V, rel, rho)
-                        rho_new = min(npad // 2, max(rho * 2, rho + 32))
-                        log_info("partition: class %d rho %d rel %.1e > "
-                                 "%.0e; retrying at rho %d", cls, rho, rel,
-                                 tol_eff, rho_new)
-                        rho = rho_new
+                    U, V, rel, rho, steps = _escalate(Zd, rho, tol_eff)
                     st_ = cls_state.get(cls, (0, 0.0))
                     cls_state[cls] = (max(st_[0], rho), max(st_[1], rel))
-                    del Zd, prev
+                    del Zd
 
                     # U/V stay on the device, retiled into (ntiles, GM, GK)
                     # stacks that CellPlan appends to its weight stack
@@ -406,7 +468,7 @@ class PartitionPlan:
                         t_off += rho_pad
                     self._lr_meta.append(
                         {"cls": cls, "B": len(members), "rho": rho,
-                         "rel": rel})
+                         "rel": rel, "steps": steps})
                     log_info("partition: lr class %d x%d rho=%d rel=%.2e",
                              cls, len(members), rho, rel)
             del M
@@ -434,30 +496,23 @@ class PartitionPlan:
                  len(cells1), len(cells2), n_dense_cells, self.t_rows,
                  self._nbytes / 1e6)
 
-        # ---- oversized butterfly blocks: one packed stage plan each ------
+        # ---- oversized butterfly blocks: ONE float64 stage plan ---------
+        # all their chains packed together, so that its buckets batch the
+        # units of every block; it reads x and writes y in its stacked
+        # [Re; Im] layout
+        self.num_oversized = len(mega_blks)
         self._mega = []
-        for b in mega_blks:
-            c = b.chain
-            check(c is not None and c.src is not None,
-                  "oversized block lost its source operator")
-            sub = (c.src if c.src_scale == 1.0
-                   else Scaled(c.src_scale, c.src))
+        if mega_blks:
             # block_align 32: oversized chains have ragged ranks ~20-80
-            sp = packed_mod.pack(sub, real_embed=self._complex,
-                                 block_align=32, device=device)
-            nr_c, nc_c = sub.shape
-            if self._complex:
-                # interleaved global index <-> the sub-plan's stacked
-                # [Re; Im] layout
-                in_idx = np.concatenate([b.j0 + 2 * np.arange(nc_c),
-                                         b.j0 + 2 * np.arange(nc_c) + 1])
-                out_idx = np.concatenate([b.i0 + 2 * np.arange(nr_c),
-                                          b.i0 + 2 * np.arange(nr_c) + 1])
-            else:
-                in_idx = b.j0 + np.arange(nc_c)
-                out_idx = b.i0 + np.arange(nr_c)
-            self._mega.append((sp, torch.as_tensor(in_idx, device=device),
-                               torch.as_tensor(out_idx, device=device)))
+            sp = packed_mod.pack(
+                op, dtype=np.complex128 if self._complex else np.float64,
+                real_embed=self._complex, block_align=32, device=device,
+                chains=[b.chain for b in mega_blks])
+            in_idx = torch.cat([torch.arange(k, self.m2, mul, device=device)
+                                for k in range(mul)])
+            out_idx = torch.cat([torch.arange(k, self.n2, mul, device=device)
+                                 for k in range(mul)])
+            self._mega.append((sp, in_idx, out_idx))
             self._flops += sp.stats.padded_flops_per_col
             self._useful_flops += sp.stats.useful_flops_per_col
             self._nbytes += sp.stats.weight_bytes
@@ -516,8 +571,8 @@ class PartitionPlan:
         y = cells(self.cells2, [x, t])
         for sp, in_idx, out_idx in self._mega:
             xs = x.index_select(0, in_idx)
-            y.index_add_(0, out_idx,
-                         sp.apply_stacked(xs) if sp.real_embed else sp(xs))
+            ys = sp.apply_stacked(xs) if sp.real_embed else sp(xs)
+            y.index_add_(0, out_idx, ys.to(y.dtype))
         return y
 
     def apply_complex(self, Z) -> np.ndarray:

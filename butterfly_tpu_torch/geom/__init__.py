@@ -1,7 +1,8 @@
-"""Geometry the Helmholtz slices need: boxes, circles, point helpers,
-ellipses and Poisson-disk sampling. Port counterparts of the same modules
-of `butterfly_tpu/geom/`, copied; `trimesh` and `visibility` wait for later
-slices."""
+"""Geometry: boxes, circles, point helpers, ellipses and Poisson-disk
+sampling (the Helmholtz slices), triangle meshes with the LBO's FEM
+discretization (the LBO slice). Port counterparts of the same modules of
+`butterfly_tpu/geom/`, copied; `visibility` waits for the radiosity slice
+and the native mesh kit is not ported."""
 
 from butterfly_tpu_torch.geom.bbox import Bbox
 from butterfly_tpu_torch.geom.circle import Circle, circles_are_separated
@@ -13,6 +14,7 @@ from butterfly_tpu_torch.geom.points import (
     pairwise_dists,
 )
 from butterfly_tpu_torch.geom.poisson_disk import sample_poisson_disk
+from butterfly_tpu_torch.geom.trimesh import Trimesh, icosphere
 
 __all__ = [
     "Bbox",
@@ -24,4 +26,6 @@ __all__ = [
     "insert_points_sorted",
     "pairwise_dists",
     "sample_poisson_disk",
+    "Trimesh",
+    "icosphere",
 ]

@@ -1,6 +1,7 @@
 """Models built on the port's operators (counterpart of
-`butterfly_tpu/models/`). Only retrieval is ported so far."""
+`butterfly_tpu/models/`): retrieval, the LBO eigenfunction compression
+and the covariance operators built on it; radiosity waits for its slice."""
 
-from butterfly_tpu_torch.models import retrieval
+from butterfly_tpu_torch.models import covariance, lbo, retrieval
 
-__all__ = ["retrieval"]
+__all__ = ["covariance", "lbo", "retrieval"]

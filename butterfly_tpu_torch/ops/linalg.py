@@ -24,8 +24,12 @@ tolerance of the BIE solve. These are plain matrix-vector products, which
 the JAX package also computes outside any Pallas kernel.
 
 A tensor right-hand side keeps its device; a numpy one goes to `device`
-(default: the card). The eigensolvers of the JAX module wait for the
-device-eigensolver slice.
+(default: the card).
+
+The host eigensolvers of the JAX module (`butterfly_tpu/ops/linalg.py:457-625`)
+are copied as they are: `get_max_eigenvalue`, `get_shifted_eigs` and
+`get_eigenband` (doubling and covering), scipy ARPACK with shift-invert.
+Their device counterpart is `ops/device_eigs.py`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import dataclasses
 from typing import Callable
 
 import numpy as np
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
 import torch
 
 from butterfly_tpu_torch.ops.butterfly import _f32_precision
@@ -43,6 +49,9 @@ from butterfly_tpu_torch.utils.logging import log_debug, log_info
 
 __all__ = [
     "GmresResult",
+    "get_eigenband",
+    "get_max_eigenvalue",
+    "get_shifted_eigs",
     "solve_gmres",
     "solve_gmres_device",
     "solve_gmres_plan",
@@ -415,3 +424,179 @@ def solve_gmres_plan(
              total, final, residuals[-2] if len(residuals) > 1 else 0.0)
     return GmresResult(x.cpu().numpy(), total, residuals,
                        bool(final < 10 * tol))
+
+
+# ---------------------------------------------------------------------------
+# Eigen solves (host, setup-time)
+# ---------------------------------------------------------------------------
+
+
+def _as_sparse(A) -> sp.spmatrix:
+    if sp.issparse(A):
+        return A.tocsc()
+    if hasattr(A, "materialize"):
+        return sp.csc_matrix(A.materialize())
+    return sp.csc_matrix(np.asarray(A))
+
+
+def _v0(n: int) -> np.ndarray:
+    """Deterministic Lanczos start vector: ARPACK otherwise seeds from the
+    global legacy RNG, making eigensolves depend on unrelated code having
+    drawn random numbers (observed as test-order-dependent eigenband
+    results)."""
+    return np.random.default_rng(0x5EED).standard_normal(n)
+
+
+def get_max_eigenvalue(L, M) -> float:
+    """Largest eigenvalue of the generalized problem L x = lam M x
+    (reference: bfGetMaxEigenvalue, src/linalg.c:328-470)."""
+    Ls, Ms = _as_sparse(L), _as_sparse(M)
+    vals = spla.eigsh(
+        Ls, k=1, M=Ms, which="LA", return_eigenvectors=False, tol=1e-9,
+        v0=_v0(Ls.shape[0]),
+    )
+    return float(vals[0])
+
+
+def get_shifted_eigs(L, M, sigma: float, k: int):
+    """k eigenpairs of (L, M) nearest `sigma` via shift-invert Lanczos,
+    sorted ascending (reference: bfGetShiftedEigs, src/linalg.c:472-746)."""
+    Ls, Ms = _as_sparse(L), _as_sparse(M)
+    vals, vecs = spla.eigsh(Ls, k=k, M=Ms, sigma=sigma, which="LM",
+                            v0=_v0(Ls.shape[0]))
+    order = np.argsort(vals)
+    return vals[order], vecs[:, order]
+
+
+def _cluster_edges(vals: np.ndarray) -> np.ndarray:
+    """Indices where a new distinct eigenvalue cluster starts."""
+    if vals.size == 0:
+        return np.empty(0, dtype=np.int64)
+    tol = 1e-9 * max(1.0, np.abs(vals).max())
+    return np.concatenate([[0], np.flatnonzero(np.diff(vals) > tol) + 1])
+
+
+def _covering_probe(L, M, sigma: float, k: int, n: int):
+    """One COVERING probe: eigenpairs around sigma plus a certified covered
+    bracket (reference: getPairsCoveringInterval, src/linalg.c:818-899).
+
+    The certified interval's endpoints are placed strictly BETWEEN distinct
+    eigenvalue clusters so multiplets are never split between probes; the
+    outermost clusters are discarded (they may be incomplete)."""
+    kk = k + 2
+    while True:
+        kk = min(kk, n - 2)
+        vals, vecs = get_shifted_eigs(L, M, sigma, kk)
+        starts = _cluster_edges(vals)
+        if starts.size >= 3 or kk >= n - 2:
+            break
+        kk *= 2
+    if starts.size < 3:
+        # whole reachable spectrum is (at most) two clusters: certify all
+        return vals, vecs, (-np.inf, np.inf)
+    c0_end = starts[1]  # first kept index
+    cm_start = starts[-1]  # first discarded index
+    lo = 0.5 * (vals[c0_end - 1] + vals[c0_end])
+    hi = 0.5 * (vals[cm_start - 1] + vals[cm_start])
+    keep = slice(c0_end, cm_start)
+    return vals[keep], vecs[:, keep], (float(lo), float(hi))
+
+
+def get_eigenband(L, M, lam0: float, lam1: float, method: str = "covering",
+                  k_init: int = 8):
+    """All eigenpairs with lam in [lam0, lam1]
+    (reference: bfGetEigenband, src/linalg.c:969-1000).
+
+    method="doubling": shift-invert at the midpoint, doubling k until the
+      returned spectrum covers the band (src/linalg.c:748-816).
+    method="covering": maintain a worklist of uncovered subintervals; probe
+      each at its midpoint with k_init+2 eigenpairs, certify the midpoint
+      bracket, subtract it from the worklist (src/linalg.c:901-967).
+
+    Handles half-open bands: lam0=-inf or lam1=+inf take everything on that
+    side reachable from the probes (used by the LBO streamer's brackets,
+    src/lbo.c:41-68).
+    """
+    check(lam0 < lam1, "empty band", InvalidArgumentsError)
+    n = _as_sparse(L).shape[0]
+
+    # Resolve half-open bands to the actual spectrum edge first — a shifted
+    # probe alone cannot certify that nothing lies further out.
+    if not np.isfinite(lam0):
+        Ls, Ms = _as_sparse(L), _as_sparse(M)
+        # shift-invert just below the spectrum: (L - sigma M) is definite for
+        # sigma < lam_min, so this is robust even for singular L (lam_min=0),
+        # where plain Lanczos which='SA' can silently miss the kernel.
+        scale = abs(Ls.diagonal()).sum() / max(abs(Ms.diagonal()).sum(), 1e-300)
+        sigma_probe = -1e-6 * max(scale, 1e-300)
+        lam_min = float(
+            spla.eigsh(Ls, k=1, M=Ms, sigma=sigma_probe, which="LM",
+                       return_eigenvectors=False, v0=_v0(Ls.shape[0]))[0]
+        )
+        lam0 = lam_min - max(1e-8, 1e-8 * abs(lam_min))
+    if not np.isfinite(lam1):
+        lam_max = get_max_eigenvalue(L, M)
+        lam1 = lam_max + max(1e-8, 1e-8 * abs(lam_max))
+
+    finite_lo = np.isfinite(lam0)
+    finite_hi = np.isfinite(lam1)
+
+    if method == "doubling":
+        sigma = (
+            0.5 * (lam0 + lam1)
+            if finite_lo and finite_hi
+            else (lam1 - 1.0 if finite_hi else lam0 + 1.0)
+        )
+        k = k_init
+        while True:
+            k = min(k, n - 2)
+            vals, vecs = get_shifted_eigs(L, M, sigma, k)
+            lo_ok = (not finite_lo) or vals[0] < lam0
+            hi_ok = (not finite_hi) or vals[-1] > lam1
+            if (lo_ok and hi_ok) or k >= n - 2:
+                keep = np.ones_like(vals, dtype=bool)
+                if finite_lo:
+                    keep &= vals >= lam0
+                if finite_hi:
+                    keep &= vals < lam1
+                return vals[keep], vecs[:, keep]
+            k *= 2
+
+    check(method == "covering", f"unknown method {method}", InvalidArgumentsError)
+    check(finite_lo and finite_hi,
+          "covering method needs a finite band; use doubling for half-open",
+          InvalidArgumentsError)
+
+    all_vals: list[np.ndarray] = []
+    all_vecs: list[np.ndarray] = []
+    # worklist of disjoint uncovered intervals (reference: disjoint interval
+    # list, src/disjoint_interval_list.c)
+    work = [(lam0, lam1)]
+    guard = 0
+    while work:
+        guard += 1
+        check(guard <= 1000, "eigenband covering failed to converge")
+        a, b = work.pop()
+        sigma = 0.5 * (a + b)
+        vals, vecs, (lo, hi) = _covering_probe(L, M, sigma, k_init, n)
+        if lo >= b or hi <= a:
+            # certified interval fell outside the work interval: nothing in
+            # (a, b) near sigma was certified — enlarge the probe instead of
+            # looping forever
+            vals, vecs, (lo, hi) = _covering_probe(L, M, sigma, 4 * k_init, n)
+            if lo >= b or hi <= a:
+                lo, hi = a, b  # accept what we have for this interval
+        keep = (vals >= a) & (vals < b) & (vals >= lo) & (vals < hi)
+        all_vals.append(vals[keep])
+        all_vecs.append(vecs[:, keep])
+        if lo > a:
+            work.append((a, min(lo, b)))
+        if hi < b:
+            work.append((max(hi, a), b))
+        log_debug("eigenband covering: probe sigma=%.4g covered (%.4g, %.4g)",
+                  sigma, lo, hi)
+
+    vals = np.concatenate(all_vals)
+    vecs = np.concatenate(all_vecs, axis=1) if all_vecs else np.zeros((n, 0))
+    order = np.argsort(vals)
+    return vals[order], vecs[:, order]

@@ -291,10 +291,14 @@ class StagePlan:
     flops = one complex madd's true cost. Default: no embedding; a complex
     operator then applies in complex arithmetic. Weights and index tables
     live on `device` (default: the card).
+
+    `chains`: pack only these positioned chains of `op` (from `_flatten`;
+    the partition plan packs its oversized blocks together this way);
+    default all of them.
     """
 
     def __init__(self, op: L.LinOp, dtype=None, block_align: int = 128,
-                 real_embed: bool = False, device=None):
+                 real_embed: bool = False, device=None, chains=None):
         device = resolve_device(device)
         self.device = device
 
@@ -316,8 +320,9 @@ class StagePlan:
             dtype = np.zeros(0, dtype).real.dtype
         self.dtype = dtype
 
-        chains: list[_Chain] = []
-        _flatten(op, 0, 0, chains)
+        if chains is None:
+            chains = []
+            _flatten(op, 0, 0, chains)
         num_stages = max(len(c.factors) for c in chains)
 
         # Assign global offsets for each chain's intermediate vectors.
@@ -721,7 +726,8 @@ def _apply_plan(meta: _PlanMeta, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def pack(op: L.LinOp, dtype=None, block_align: int = 128,
-         real_embed: bool = False, device=None) -> StagePlan:
-    """Compile a LinOp into its packed device plan on `device`."""
+         real_embed: bool = False, device=None, chains=None) -> StagePlan:
+    """Compile a LinOp (or the `chains` of it) into its packed device plan
+    on `device`."""
     return StagePlan(op, dtype=dtype, block_align=block_align,
-                     real_embed=real_embed, device=device)
+                     real_embed=real_embed, device=device, chains=chains)

@@ -10,6 +10,9 @@ accuracy); a batched device path serves uniform-block compression.
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg as sla
+
+from butterfly_tpu_torch.utils.logging import log_info
 
 __all__ = ["truncated_svd", "svd_rank"]
 
@@ -28,9 +31,19 @@ def truncated_svd(A: np.ndarray, tol: float):
     `truncated` mirrors the reference's success flag — True iff terms were
     actually dropped (r < min(m, n)), which is what the epsilon-rank-cut
     descent keys on (src/fac.c:977-983).
+
+    The SVD is LAPACK's divide and conquer (gesdd), as numpy's. Where
+    gesdd does not converge, which it did on a core of the streamed LBO
+    eigenvector table of icosphere(5), it is computed again by QR
+    iteration (gesvd), which raises in turn if it fails.
     """
     A = np.asarray(A)
-    U, s, Vt = np.linalg.svd(A, full_matrices=False)
+    try:
+        U, s, Vt = np.linalg.svd(A, full_matrices=False)
+    except np.linalg.LinAlgError:
+        log_info("truncated_svd: gesdd did not converge on a %s matrix; "
+                 "using gesvd", A.shape)
+        U, s, Vt = sla.svd(A, full_matrices=False, lapack_driver="gesvd")
     r = svd_rank(s, tol)
     r = max(r, 1) if min(A.shape) > 0 else 0
     truncated = r < min(A.shape)

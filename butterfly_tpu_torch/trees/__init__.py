@@ -1,3 +1,4 @@
+from butterfly_tpu_torch.trees.interval_tree import IntervalTree, IntervalTreeNode
 from butterfly_tpu_torch.trees.point_tree import (
     Octree,
     PointTree,
@@ -15,6 +16,8 @@ from butterfly_tpu_torch.trees.tree import (
 )
 
 __all__ = [
+    "IntervalTree",
+    "IntervalTreeNode",
     "Octree",
     "PointTree",
     "PointTreeNode",

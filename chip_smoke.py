@@ -69,7 +69,8 @@ each printing its numbers on lines of their own:
      windows read on the H100) and `solve_gmres_plan` on the second-kind
      BIE (held to converge within the 18 iterations of float32 windows),
      with iterations, seconds, ms per iteration and K2 launches over the
-     solve, beside the TPU record `HELM2_SCALE_r05.json`;
+     solve, beside the TPU record `HELM2_SCALE_r05.json`; every low-rank
+     class, factored in float64, held to the probe tolerance 3e-7;
   8. the fast direct solver's device substitution (`DeviceSolver`) on the
      operator-first Toeplitz system at n=4096
      (`butterfly_tpu_torch/examples/fast_direct_solver.py`): host float64
@@ -112,10 +113,31 @@ each printing its numbers on lines of their own:
      against dense in float64, and `distill_butterfly_batch` of a
      (4, 256, 256) batch (NB=8, rank 64), held to 1e-6 against
      block-diag(M_b); both applied by `fused_apply` through K1, its passes
-     held to 1e-5 against `pass_plain` and equal to the plan's own apply.
+     held to 1e-5 against `pass_plain` and equal to the plan's own apply;
+ 12. the LBO and covariance workload (BASELINE config 4) and the LBO
+     eigenvector table: (a) `compress_lbo_eigenfunctions` on icosphere(3)
+     (642 vertices, tol 1e-6) with the device eigensolver (dense path,
+     float64 on the card), its eigenvalues held to the dense host
+     eigensolve (rtol and atol 1e-8) and every frequency of the scipy
+     branch found among its own (rtol 1e-8, atol 1e-6; the scipy branch
+     misses one pair of a multiplet here), the `bf_lbo` eigen-residual of
+     the compressed apply (1e-5) and the covariance apply through it
+     against the Chebyshev apply (order 96, kappa 0.1; held to the JAX
+     example's 4.402e-3); (b) `DeviceEigSession` on icosphere(5) (10,242
+     vertices: LOBPCG, chunk 128, float64, cuSPARSE products) serving the
+     lowest 256 pairs, held to host `eigsh(k=256, sigma=0)` (rtol and atol
+     1e-8), residuals 1e-5 of the band's scale, M-orthonormality 1e-6, and
+     timed against it; (c) the `retrieval_lbo` twin's LBO table at
+     icosphere(5) with 1024 eigenvectors (host `eigsh`, octree rows) in
+     its three formats, `deep_fused` on K1: its passes held to 1e-5
+     against `pass_plain`, 512 rows of its scores to 1e-6 against the
+     distilled factors in float64, recall of every format printed, K1
+     timed beside its plain passes, the per-level einsum and the dense
+     `Q @ Phi.T` + `torch.topk`.
 
 Each part of the main path (phases 4 and 5 through K1, phases 6 and 7
-through K2, phase 9 through K1, phase 10 through K2, phase 11 through K1)
+through K2, phase 9 through K1, phase 10 through K2, phases 11 and 12
+through K1)
 runs with the launch counts set to 0 just before and read just after.
 Times are medians of CUDA-event timings after warm-up. The last lines are
 one JSON object describing the kernels, the `nvidia-smi` line, and the
@@ -125,6 +147,7 @@ carried on.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -334,7 +357,7 @@ def bie_phase(dev, timer):
         plan = prob.card.plan
         print(f"[10 bie] {label}: plan {prob.rec['plan_s']:.2f} s, windows "
               f"{plan.windows}, {prob.rec['weights_mb']:.1f} MB, classes "
-              f"{plan._lr_meta}, oversized {len(plan._mega)}", flush=True)
+              f"{plan._lr_meta}, oversized {plan.num_oversized}", flush=True)
         k2 = k2_on_plan(label, plan, torch.Generator(device=dev).manual_seed(
             31), timer)
         K1.launches = 0
@@ -480,6 +503,197 @@ def bridge_phase(dev, timer):
         rel_err_vs_plain=err, launches=launches)
     print("[11 bridge] " + json.dumps(case), flush=True)
     return case, launches
+
+
+def lbo_phase(dev, timer, band=(5, 256), table=(5, 1024)):
+    """Phase 12: the LBO and covariance workload (BASELINE config 4) and
+    the LBO eigenvector table through K1. (a) `compress_lbo_eigenfunctions`
+    on icosphere(3) with the device eigensolver (dense path, float64 on
+    the card) against the scipy branch and the dense eigensolve, the
+    compressed apply's eigen-residual and the covariance apply against the
+    Chebyshev one; (b) `DeviceEigSession` on icosphere(5) (LOBPCG) for the
+    lowest 256 pairs against host `eigsh`; (c) the `retrieval_lbo` twin's
+    LBO table at icosphere(5), 1024 eigenvectors, in its three formats,
+    the launch counts set to 0 just before and read just after, then K1 on
+    its deep_fused plan. `band` and `table` are (subdivisions, pairs) of
+    (b) and (c). Returns (K1's case, K1 launches of (c), the record of (a)
+    and (b))."""
+    import scipy.linalg as sla
+    import scipy.sparse.linalg as spla
+
+    from butterfly_tpu_torch.examples import bf_lbo
+    from butterfly_tpu_torch.examples import covariance as twin_cov
+    from butterfly_tpu_torch.examples import retrieval_lbo as twin
+    from butterfly_tpu_torch.geom import icosphere
+    from butterfly_tpu_torch.models.covariance import (
+        squared_exponential_density,
+    )
+    from butterfly_tpu_torch.models.lbo import compress_lbo_eigenfunctions
+    from butterfly_tpu_torch.models.retrieval import recall_at_k
+    from butterfly_tpu_torch.ops.cellsp import K2
+    from butterfly_tpu_torch.ops.device_eigs import DeviceEigSession
+    from butterfly_tpu_torch.ops.fused_butterfly import K1, pass_plain
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    rec = {}
+    # ---- (a) config 4 on icosphere(3): the dense device path ------------
+    mesh = icosphere(3)
+    L, M = mesh.lbo_fem()
+    K1.launches = 0
+    K2.launches = 0
+    ts = time.perf_counter()
+    comp = compress_lbo_eigenfunctions(mesh, tol=1e-6, eigensolver="device",
+                                       device=dev)
+    rec["device_setup_s"] = time.perf_counter() - ts
+    require(K1.launches == 0 and K2.launches == 0,
+            "the LBO compression launched K1 or K2")
+    ts = time.perf_counter()
+    comp_h = compress_lbo_eigenfunctions(mesh, tol=1e-6)
+    rec["scipy_setup_s"] = time.perf_counter() - ts
+    lam = np.sort(sla.eigh(L.toarray(), M.toarray(), eigvals_only=True))
+    require(comp.freqs.size == mesh.num_verts,
+            f"device branch: {comp.freqs.size} of {mesh.num_verts} pairs")
+    # eigenvalues here: sqrt maps the kernel mode's 1e-12 rounding in the
+    # host's dense solve to 1e-6 in frequency
+    err_dense = float(np.max(np.abs(comp.freqs ** 2 - lam)
+                             / (1e-8 + 1e-8 * np.abs(lam))))
+    require(err_dense <= 1.0, f"device eigenvalues vs the dense eigensolve: "
+            f"{err_dense:.3f} of rtol 1e-8 + atol 1e-8")
+    # the scipy branch: every frequency it found is the device branch's
+    # (it misses pairs inside a multiplet that its covering probes split)
+    j = np.clip(np.searchsorted(comp.freqs, comp_h.freqs), 1,
+                comp.freqs.size - 1)
+    near = np.where(np.abs(comp.freqs[j] - comp_h.freqs)
+                    < np.abs(comp.freqs[j - 1] - comp_h.freqs),
+                    comp.freqs[j], comp.freqs[j - 1])
+    err_h = float(np.max(np.abs(near - comp_h.freqs)
+                         / (1e-6 + 1e-8 * comp_h.freqs)))
+    require(err_h <= 1.0, f"device freqs vs the scipy branch: {err_h:.3f} "
+            "of rtol 1e-8 + atol 1e-6")
+    res = bf_lbo.eigen_residual(mesh, comp)
+    require(res <= 1e-5, f"bf_lbo eigen-residual {res:.3e} > 1e-5")
+    cov = twin_cov.fast_vs_cheb(mesh, comp, squared_exponential_density(0.1),
+                                96)
+    # the JAX example `examples/covariance.py --subdiv 3 --tol 1e-6` prints
+    # 4.402e-03 (its fast path through the scipy branch's basis)
+    require(cov["rel_diff_fast_vs_cheb"] <= 4.402e-3,
+            f"covariance fast vs cheb {cov['rel_diff_fast_vs_cheb']:.3e}")
+    rec.update(verts=mesh.num_verts, pairs_device=int(comp.freqs.size),
+               pairs_scipy=int(comp_h.freqs.size),
+               freq_err_vs_dense=err_dense, freq_err_vs_scipy=err_h,
+               compression_rate=comp.compression_rate, eigen_residual=res,
+               **cov)
+    print("[12 lbo] (a) icosphere(3) " + json.dumps(rec), flush=True)
+
+    # ---- (b) the device eigensolver at real size: LOBPCG ----------------
+    mesh5 = icosphere(band[0])
+    L5, M5 = mesh5.lbo_fem()
+    k = band[1]
+    ts = time.perf_counter()
+    lam_h = np.sort(spla.eigsh(L5, k=k, M=M5, sigma=0.0, which="LM",
+                               return_eigenvectors=False))
+    eigsh_s = time.perf_counter() - ts
+    hi = float(lam_h[-1]) * (1 + 1e-3)
+    K1.launches = 0
+    K2.launches = 0
+    sync()
+    ts = time.perf_counter()
+    ses = DeviceEigSession(L5, M5, device=dev, chunk=128)
+    vals, vecs = ses.next_band(-np.inf, hi)
+    sync()
+    lobpcg_s = time.perf_counter() - ts
+    require(K1.launches == 0 and K2.launches == 0,
+            "the device eigensolver launched K1 or K2")
+    require(vals.size == k, f"LOBPCG served {vals.size} pairs below "
+            f"{hi:.4g}, host eigsh {k}")
+    err_b = float(np.max(np.abs(vals - lam_h) / (1e-8 + 1e-8 * lam_h)))
+    require(err_b <= 1.0, f"LOBPCG vs eigsh: {err_b:.3f} of rtol 1e-8 + "
+            "atol 1e-8")
+    rel_b = float(np.max(np.abs(vals - lam_h)[1:] / lam_h[1:]))
+    R = L5 @ vecs - (M5 @ vecs) * vals[None, :]
+    res_b = float(np.linalg.norm(R, axis=0).max() / max(vals.max(), 1.0))
+    require(res_b <= 1e-5, f"LOBPCG residual {res_b:.3e} of the band scale")
+    orth = float(np.abs(vecs.T @ (M5 @ vecs) - np.eye(k)).max())
+    require(orth <= 1e-6, f"LOBPCG M-orthonormality {orth:.3e}")
+    rb = dict(verts=mesh5.num_verts, pairs=k, chunk=128,
+              pairs_converged=int(ses._vals.size), host_eigsh_s=eigsh_s,
+              lobpcg_s=lobpcg_s, err_vs_eigsh_of_tol=err_b,
+              max_rel_err_vs_eigsh_nonzero=rel_b,
+              residual_over_scale=res_b, m_orthonormality=orth)
+    rec["lobpcg"] = rb
+    print(f"[12 lbo] (b) icosphere({band[0]}) " + json.dumps(rb), flush=True)
+
+    # ---- (c) the LBO table through K1 -----------------------------------
+    args = twin.parse_args(["--subdiv", str(table[0]), "--num-eigs",
+                            str(table[1])])
+    Phi, eig_s = twin.lbo_table(*table)
+    K1.launches = 0
+    K2.launches = 0
+    with torch.no_grad():
+        rows, fused = twin.run_table(Phi, args, dev)
+    sync()
+    launches = K1.launches
+    require(launches > 0 and K2.launches == 0,
+            f"the LBO table launched K1 {launches} and K2 {K2.launches} "
+            "times")
+    for r in rows:
+        r.update(eigsh_s=eig_s)
+        print("[12 lbo] (c) " + json.dumps(r), flush=True)
+    plan, dist, x = fused["plan"], fused["dist"], fused["x"]
+    y, y_plain = plan.apply(x), plan.apply_plain(x)
+    err = rel_err(y, y_plain)
+    require(err <= 1e-5, f"LBO deep_fused: K1 vs plain {err:.3e}")
+    cur = x
+    for i, (pm, ws) in enumerate(zip(plan.passes, plan._pass_weights)):
+        leafp = plan._leafp if pm.has_leaf else None
+        got = K1(pm, plan.radix, cur, leafp, ws)
+        err_p = rel_err(got, pass_plain(pm, plan.radix, cur, leafp, ws))
+        require(err_p <= 1e-5, f"LBO deep_fused pass {i}: K1 vs plain "
+                f"{err_p:.3e}")
+        cur = got
+    # 512 rows of the scores against the distilled factors in float64
+    bf64 = copy.deepcopy(dist.bf).double()
+    rows512 = torch.as_tensor(np.sort(np.random.default_rng(12).choice(
+        y.shape[0], 512, replace=False)), device=dev)
+    y64 = bf64.apply(x.double())
+    err64 = rel_err(y.index_select(0, rows512), y64.index_select(0, rows512))
+    require(err64 <= 1e-6, f"LBO deep_fused scores vs float64 factors "
+            f"{err64:.3e}")
+    ids_k1 = dist.row_perm[torch.topk(y.T, 100).indices.cpu().numpy()]
+    rec_k1 = recall_at_k(ids_k1, fused["true100"])
+    table = torch.as_tensor(fused["table"], device=dev)
+    q = x.T.contiguous()
+    r = x.shape[1]
+    flops = dist.bf.flops_per_col() * r
+    b_ms, b_by = bound_ms(flops, dist.bf.nbytes() + nbytes_of(x)
+                          + nbytes_of(y), PEAK_F32)
+    case = dict(
+        shape=f"n={Phi.shape[0]} (padded {table.shape[0]}) d={Phi.shape[1]}"
+              f" NB={plan.NB} rank={dist.rank} r={r} float32",
+        passes=pass_split(plan),
+        ms=1e3 * timer(lambda: plan.apply(x), warmup=2, iters=20),
+        plain_ms=1e3 * timer(lambda: plan.apply_plain(x), warmup=1,
+                             iters=20),
+        library_ms=1e3 * timer(lambda: dist.bf.apply(x), warmup=1,
+                               iters=20),
+        dense_topk_ms=1e3 * timer(lambda: torch.topk(q @ table.T, 100),
+                                  warmup=2, iters=20),
+        k1_topk_ms=1e3 * timer(lambda: torch.topk(plan.apply(x).T, 100),
+                               warmup=2, iters=20),
+        bound_ms=b_ms, bound_by=b_by, flops=flops,
+        max_abs_err=float((y.double() - y_plain.double()).abs().max()),
+        rel_err_vs_plain=err, rel_err_vs_f64_factors_512_rows=err64,
+        recall_at_100_strict_k1=rec_k1,
+        recalls={row["format"]: (row["recall_at_100_strict"],
+                                 row["recall_at_100_tol1e-3"])
+                 for row in rows},
+        launches=launches)
+    print("[12 lbo] K1 on the LBO table's deep_fused: " + json.dumps(case),
+          flush=True)
+    return case, launches, rec
 
 
 def main() -> int:
@@ -1027,7 +1241,7 @@ def main() -> int:
         cells=[c1.num_cells, c2.num_cells],
         matmul_cells=[c1.num_matmul_cells, c2.num_matmul_cells],
         weight_mb=[c1.nbytes() / 1e6, c2.nbytes() / 1e6],
-        t_rows=pp.t_rows, lr_classes=pp._lr_meta, oversized=len(pp._mega),
+        t_rows=pp.t_rows, lr_classes=pp._lr_meta, oversized=pp.num_oversized,
         flops_per_col=pp.flops_per_col(),
         useful_flops_per_col=pp.useful_flops_per_col(),
         useful_flops_per_col_k2=[c1.useful_flops_per_col(),
@@ -1065,12 +1279,15 @@ def main() -> int:
           f"{prob.rec['setup_fac_s']:.2f} s, plan {prob.rec['setup_plan_s']:.2f}"
           f" s, low-rank windows {ps.windows}, weights "
           f"{prob.rec['weights_mb']:.1f} MB, classes {ps._lr_meta}, oversized "
-          f"{len(ps._mega)}", flush=True)
+          f"{ps.num_oversized}", flush=True)
     require(ps.cells1 is not None and not ps._mega,
             "the n=16384 plan should hold low-rank classes and no oversized "
             "block")
     require(ps.windows == "device_f64",
             f"the n=16384 plan took its {ps.windows} path")
+    # windows factored in float64: every class meets the probe tolerance
+    require(all(c["rel"] <= 3e-7 for c in ps._lr_meta),
+            f"n=16384 class probe residuals {[c['rel'] for c in ps._lr_meta]}")
     s1, s2 = ps.cells1, ps.cells2
     scale = {}
     for r in (1, rS):
@@ -1149,8 +1366,8 @@ def main() -> int:
     require(row["gmres_converged"],
             f"GMRES did not converge: {row['gmres_iters']} iterations, rel "
             f"res {row['gmres_rel_res']:.3e}")
-    # float64 windows: below the float32 windows' row oracle (7.987e-7) and
-    # iterations (18) on the H100
+    # float64 windows, factored in float64: below the float32 windows' row
+    # oracle (7.987e-7) and iterations (18) on the H100
     require(row["rel_err_vs_dense"] < 7.987e-7 and row["gmres_iters"] <= 18,
             f"scale twin with {row['windows']} windows: row oracle "
             f"{row['rel_err_vs_dense']:.3e}, {row['gmres_iters']} iterations")
@@ -1205,6 +1422,10 @@ def main() -> int:
     k1_bridge, launches_F = bridge_phase(dev, device_time)
     torch.cuda.empty_cache()
 
+    # ---- 12. the LBO and covariance workload; the LBO table on K1 ------
+    k1_lbo, launches_L, lbo = lbo_phase(dev, device_time)
+    torch.cuda.empty_cache()
+
     # ---- the record -----------------------------------------------------
     head = results["flagship bf16"]
     kernels = {"kernels": [{
@@ -1212,7 +1433,7 @@ def main() -> int:
         "route": "cuda",
         "source": "butterfly_tpu_torch/csrc/k1_pass.cu",
         "replaces": "butterfly_tpu/ops/pallas_butterfly.py:132",
-        "launches": launches + launches_R + launches_F,
+        "launches": launches + launches_R + launches_F + launches_L,
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1222,10 +1443,13 @@ def main() -> int:
         "shape": head["shape"],
         "paths": ["4 flagship", "5 real fac", "9 retrieval deep_fused",
                   "11 bridge: fused_apply of distill_butterfly_device and "
-                  "distill_butterfly_batch"],
+                  "distill_butterfly_batch",
+                  "12 LBO eigenvector table deep_fused"],
         "cases": {"flagship f32": results["flagship f32"], "real fac": real,
                   "retrieval deep_fused": k1_retrieval,
-                  "bridge fused_apply": k1_bridge},
+                  "bridge fused_apply": k1_bridge,
+                  "LBO table deep_fused": k1_lbo,
+                  "LBO and covariance (no kernel)": lbo},
     }, {
         "name": "k2_cell",
         "route": "cuda",

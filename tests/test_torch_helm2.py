@@ -140,3 +140,30 @@ def test_pack_materialize_matches_jax(butterfly_block, which):
     assert y.shape == (opj.shape[0],)
     assert np.abs(y.numpy() - got @ x.numpy()).max() <= (
         1e-5 * np.abs(got).max() * np.abs(x.numpy()).sum())
+
+
+@pytest.mark.parametrize("which", ["complex real_embed", "real"])
+def test_pack_chains_splits_the_operator(butterfly_block, which):
+    """`pack(op, chains=...)` packs only those positioned chains of op: two
+    plans over complementary halves of its chains sum to the plan of the
+    whole operator."""
+    from butterfly_tpu_torch.ops.packed import _flatten
+
+    Bj, Rj = butterfly_block
+    op = linop_from_numpy(Rj if which == "real" else Bj)
+    embed = which == "complex real_embed"
+    chains: list = []
+    _flatten(op, 0, 0, chains)
+    if len(chains) == 1:
+        # the butterfly is one chain: each half packs it once, and the
+        # halves sum to twice the operator
+        chains = chains + chains
+        halves = (chains[:1], chains[1:])
+        want = 2 * pack(op, real_embed=embed, device="cpu").materialize()
+    else:
+        k = len(chains) // 2
+        halves = (chains[:k], chains[k:])
+        want = pack(op, real_embed=embed, device="cpu").materialize()
+    got = sum(pack(op, real_embed=embed, device="cpu",
+                   chains=h).materialize() for h in halves)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

@@ -16,10 +16,14 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.convert",
     "butterfly_tpu_torch.entry",
     "butterfly_tpu_torch.examples",
+    "butterfly_tpu_torch.examples.bf_lbo",
+    "butterfly_tpu_torch.examples.covariance",
     "butterfly_tpu_torch.examples.fast_direct_solver",
+    "butterfly_tpu_torch.examples.fiedler_tree",
     "butterfly_tpu_torch.examples.helm2_bie",
     "butterfly_tpu_torch.examples.helm2_scale",
     "butterfly_tpu_torch.examples.multiple_scattering",
+    "butterfly_tpu_torch.examples.partition_floor",
     "butterfly_tpu_torch.examples.real_fac_scale",
     "butterfly_tpu_torch.examples.retrieval",
     "butterfly_tpu_torch.examples.retrieval_lbo",
@@ -38,11 +42,16 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.geom.ellipse",
     "butterfly_tpu_torch.geom.points",
     "butterfly_tpu_torch.geom.poisson_disk",
+    "butterfly_tpu_torch.geom.trimesh",
     "butterfly_tpu_torch.models",
+    "butterfly_tpu_torch.models.covariance",
+    "butterfly_tpu_torch.models.lbo",
     "butterfly_tpu_torch.models.retrieval",
     "butterfly_tpu_torch.ops",
     "butterfly_tpu_torch.ops.butterfly",
     "butterfly_tpu_torch.ops.cellsp",
+    "butterfly_tpu_torch.ops.cheb",
+    "butterfly_tpu_torch.ops.device_eigs",
     "butterfly_tpu_torch.ops.fused_butterfly",
     "butterfly_tpu_torch.ops.helm2",
     "butterfly_tpu_torch.ops.hostpack",
@@ -53,6 +62,8 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.ops.special",
     "butterfly_tpu_torch.ops.svd",
     "butterfly_tpu_torch.trees",
+    "butterfly_tpu_torch.trees.fiedler_tree",
+    "butterfly_tpu_torch.trees.interval_tree",
     "butterfly_tpu_torch.trees.point_tree",
     "butterfly_tpu_torch.trees.tree",
     "butterfly_tpu_torch.utils",
@@ -100,6 +111,13 @@ from butterfly_tpu_torch.examples import (
 from butterfly_tpu_torch.fac.distill import (
     distill_butterfly_batch, distill_butterfly_device)
 import numpy as np
+import scipy.sparse as sp
+from butterfly_tpu_torch.examples import (
+    bf_lbo, covariance, partition_floor)
+from butterfly_tpu_torch.geom import icosphere
+from butterfly_tpu_torch.models.lbo import compress_lbo_eigenfunctions
+from butterfly_tpu_torch.ops.device_eigs import (
+    DeviceEigSession, dense_generalized_eigh_device)
 
 def raises(fn):
     try:
@@ -133,6 +151,18 @@ assert raises(lambda: multiple_scattering.main(["--per-boundary", "64"]))
 assert raises(lambda: real_fac_scale.main(["--n", "256", "--m", "64"]))
 assert raises(lambda: distill_butterfly_batch(np.ones((64, 64)), 4, 8))
 assert raises(lambda: distill_butterfly_device(np.ones((64, 64)), 4, 8))
+pencil = (sp.eye(8, format="csr"), sp.eye(8, format="csr"))
+assert raises(lambda: DeviceEigSession(*pencil))
+assert raises(lambda: dense_generalized_eigh_device(*pencil))
+assert raises(lambda: compress_lbo_eigenfunctions(
+    icosphere(1), eigensolver="device"))
+assert raises(lambda: bf_lbo.main(["--subdiv", "1", "--eigensolver",
+                                   "device"]))
+assert raises(lambda: covariance.main(["--subdiv", "1", "--eigensolver",
+                                       "device"]))
+assert raises(lambda: retrieval_lbo.main(["--subdiv", "2", "--num-eigs",
+                                          "8"]))
+assert raises(lambda: partition_floor.main(["--sizes", "256"]))
 print("isolated")
 """
 

@@ -162,3 +162,61 @@ def test_combined_field_device_windows_are_sliced_from_float64(
     pp = partition_apply_plan(A, device="cpu")
     assert pp.cells1 is not None and pp.windows == "device_f64"
     assert _rel(pp.apply_complex(zs), want) < 3e-7
+
+
+def test_float64_factoring_passes_the_float32_floor():
+    """Two 512 x 512 windows of exact rank 60 (singular values 1 down to
+    1e-9): factored in float32 (the JAX package's precision), the probe
+    residual stays near 6e-7 at rank 64 and 128, above `_LR_TOL` and
+    falling less than 2x, which the JAX package's escalation takes for a
+    floor; the plan's float64 escalation meets `_LR_TOL` at rank 64 at
+    once, and U V, rounded to float32 as K2 applies them, is within
+    `_LR_TOL` of the window in float64."""
+    from butterfly_tpu_torch.fac import partition as part
+
+    rng = np.random.default_rng(0)
+    Z = []
+    for _ in range(2):
+        U, _ = np.linalg.qr(rng.standard_normal((512, 60)))
+        V, _ = np.linalg.qr(rng.standard_normal((512, 60)))
+        Z.append((U * np.geomspace(1.0, 1e-9, 60)) @ V.T)
+    Z = torch.from_numpy(np.stack(Z))
+    rel32 = [part._factor_batch(Z.float(), rho)[2] for rho in (64, 128)]
+    assert min(rel32) > part._LR_TOL and rel32[1] > 0.5 * rel32[0]
+    U, V, rel64, rho64, steps64 = part._escalate(Z, 64, part._LR_TOL)
+    assert len(steps64) == 1 and rho64 == 64 and rel64 <= part._LR_TOL
+    UV = U.float().double() @ V.float().double()
+    assert float((Z - UV).norm() / Z.norm()) <= part._LR_TOL
+
+
+def test_oversized_blocks_share_one_float64_stage_plan(separated_fac):
+    """With every separated block oversized (a 256 tile cap), all of their
+    chains go into one float64 stage plan, whose part of the apply agrees
+    with the chains applied on the host in float64 to 1e-12 (the input is
+    float32, so it is exact in both), and the whole apply stays within
+    2e-5 of the operator."""
+    from butterfly_tpu_torch.fac import partition as part
+
+    A, zs, want = separated_fac
+    pp = partition_apply_plan(A, bf_tiles=(256,), device="cpu",
+                              dense_materialize_limit_bytes=0)
+    assert _rel(pp.apply_complex(zs), want) < 2e-5
+    _, _, _, mega_blks = part._split_blocks(A, True, 256)
+    assert pp.num_oversized == len(mega_blks) > 1 and len(pp._mega) == 1
+    sp, in_idx, out_idx = pp._mega[0]
+    assert sp.dtype == np.float64 and sp.real_embed
+    z = zs.astype(np.complex64)
+    x = np.empty((2 * z.shape[0], z.shape[1]), np.float32)
+    x[0::2], x[1::2] = z.real, z.imag
+    y = torch.zeros((pp.n2, z.shape[1]), dtype=torch.float64)
+    y.index_add_(0, out_idx,
+                 sp.apply_stacked(torch.from_numpy(x).index_select(0, in_idx)))
+    got = (y[0::2] + 1j * y[1::2]).numpy()
+    zc = z.astype(np.complex128)
+    ref = np.zeros_like(got)
+    for b in mega_blks:
+        c = b.chain
+        i0, j0 = b.i0 // 2, b.j0 // 2
+        ref[i0:i0 + b.nr // 2] += c.src_scale * c.src.matmat(
+            zc[j0:j0 + b.nc // 2])
+    assert _rel(got, ref) <= 1e-12

@@ -42,7 +42,6 @@ from butterfly_tpu_torch.fac.uniformize import (
 )
 from butterfly_tpu_torch.models import retrieval as tr
 from butterfly_tpu_torch.ops.fused_butterfly import FusedButterflyPlan
-from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -269,5 +268,16 @@ def test_twins_run_on_the_cpu():
     assert rows[0]["recall_at_100_tol1e-3"] >= 0.99
     assert rows[1]["recall_at_100_strict"] >= rows[0]["recall_at_100_strict"]
     assert all(r["queries_per_s"] is None for r in rows)
-    with pytest.raises(InvalidArgumentsError):
-        twin_lbo.main(["--device", "cpu"])
+    # without --synthetic or --config1m: the LBO eigenvector table
+    # (icosphere(7) x 1024 by default; tests/test_torch_lbo.py runs its
+    # three formats at icosphere(3))
+    args = twin_lbo.parse_args([])
+    assert (args.subdiv, args.num_eigs, args.phi) == (7, 1024, None)
+    rows = twin_lbo.main(["--subdiv", "2", "--num-eigs", "32",
+                          "--formats", "one_level", "--rank-one-level",
+                          "32", "--queries", "32", "--device", "cpu"])
+    assert [(r["format"], r["n"], r["d"], r["table"]) for r in rows] == [
+        ("one_level", 162, 32, "lbo icosphere(2)")]
+    # the sphere's symmetry ties scores: strict recall depends on the order
+    # ties are broken in, tolerance recall does not
+    assert rows[0]["eigsh_s"] > 0 and rows[0]["recall_at_100_tol1e-3"] >= 0.99

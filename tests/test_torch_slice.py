@@ -69,6 +69,27 @@ def test_streamed_facs_agree(facs):
     assert np.linalg.norm(yt - Phi @ x) <= 1e-6 * np.linalg.norm(Phi @ x)
 
 
+def test_streamer_recomputes_an_svd_gesdd_fails_on(facs, monkeypatch):
+    """Where numpy's divide-and-conquer SVD (gesdd) does not converge, the
+    streamer's truncated SVD computes it again by QR iteration (gesvd): a
+    stream on which every gesdd call fails gives the same factorization,
+    with the same row tree."""
+    Phi, _, tfac = facs
+
+    def no_convergence(*args, **kwargs):
+        raise np.linalg.LinAlgError("SVD did not converge")
+
+    monkeypatch.setattr(np.linalg, "svd", no_convergence)
+    fac = _stream(FacSpec, FacStreamer, uniform_tree, Phi)
+    monkeypatch.undo()
+    assert [(n.i0, n.i1) for n in fac.row_nodes] == [
+        (n.i0, n.i1) for n in tfac.row_nodes]
+    x = np.random.default_rng(0).standard_normal((M, 3))
+    want = tfac.as_linop().matmat(x)
+    got = fac.as_linop().matmat(x)
+    assert np.linalg.norm(got - want) <= 1e-12 * np.linalg.norm(want)
+
+
 def test_distilled_weights_agree_f64(facs):
     Phi, jfac, tfac = facs
     dj = jax_distill(jfac.as_linop(), 16, rank=None, tol=1e-7,
