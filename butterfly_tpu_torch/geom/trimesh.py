@@ -12,8 +12,7 @@ used by the spectral-bisection tree.
 Port counterpart of `butterfly_tpu/geom/trimesh.py`, copied with its NumPy
 paths only: the native C++ mesh kit (`geom/native.py`, `native/meshkit.cpp`)
 is not ported, and the vectorized NumPy `lbo_fem` here is the oracle the
-JAX package tests its native path against. Face centroids and normals wait
-for the radiosity slice.
+JAX package tests its native path against.
 """
 
 from __future__ import annotations
@@ -119,6 +118,22 @@ class Trimesh:
         p = self.verts[self.faces]
         n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
         return 0.5 * np.linalg.norm(n, axis=1)
+
+    def face_centroids(self) -> np.ndarray:
+        """(F, 3) face centroids (reference:
+        bfTrimeshGetFaceCentroidConstPtr, used by the view-factor midpoint
+        rule src/mat_csr_real.c:388-389)."""
+        return self.verts[self.faces].mean(axis=1)
+
+    def face_normals(self) -> np.ndarray:
+        """(F, 3) unit face normals with winding orientation (reference:
+        bfTrimeshGetFaceUnitNormalConstPtr; orientation matching
+        bfTrimeshComputeFaceNormalsMatchingVertexNormals,
+        examples/radiosity/radiosity.c:15-16)."""
+        p = self.verts[self.faces]
+        n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        norm = np.linalg.norm(n, axis=1, keepdims=True)
+        return n / np.maximum(norm, 1e-300)
 
     def level_set_submesh(
         self, phi: np.ndarray, tol: float = 1e-12

@@ -9,8 +9,11 @@ tests.
 
 Port counterpart of `butterfly_tpu/ops/helm2.py`, copied so that the port
 imports nothing of the JAX package. It leaves out `kernel_matrix_jnp`
-(:108-134), the on-device twin of `kernel_matrix`: the port assembles
-kernels on the host in float64, and the factorization runs there.
+(:108-134), the on-device twin of `kernel_matrix`, with its jnp Bessel and
+Hankel series (`butterfly_tpu/ops/special.py:85-180`): their only caller is
+the JAX package's own test of that twin (`tests/test_helm2.py:29`). The
+port assembles kernels on the host in float64, where the factorization
+runs, and nothing on the card needs a kernel entry.
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ Helmholtz factorization and the packed planner use:
 - Diag            <- mat_diag_real.c
 - Identity / Zero <- mat_identity.c / mat_zero.c
 - Perm            <- mat_perm.c
+- Givens          <- mat_givens.c
 - Product         <- mat_product.c
 - Sum / Diff      <- mat_sum.c / mat_diff.c
 - Scaled          <- bfMatScale
@@ -17,9 +18,8 @@ Helmholtz factorization and the packed planner use:
 - BlockCoo        <- mat_block_coo.c
 - BlockDense      <- mat_block_dense.c
 - Coo             <- mat_coo_real.c / mat_coo_complex.c
-
-The rest of the reference algebra (Givens, indexed blocks) waits for the
-slices that use it.
+- IndexedBlock, block_coo_from_indexed <- indexed_mat.c,
+  bfMatBlockCooNewFromIndexedBlocks
 
 This layer runs on the host in float64/complex128 and is used for
 (a) factorization-time math (truncated SVDs, least squares, merges) and
@@ -46,6 +46,7 @@ __all__ = [
     "Identity",
     "Zero",
     "Perm",
+    "Givens",
     "Product",
     "Sum",
     "Diff",
@@ -55,6 +56,9 @@ __all__ = [
     "BlockCoo",
     "BlockDense",
     "Coo",
+    "IndexedBlock",
+    "aslinop",
+    "block_coo_from_indexed",
     "hpad",
     "row_slice",
 ]
@@ -357,6 +361,37 @@ class Perm(LinOp):
         return self.inverse()
 
     adjoint = transpose
+
+
+class Givens(LinOp):
+    """Single Givens rotation in the (i, j) plane (reference: mat_givens.c:12-19).
+
+    Used by GMRES's least-squares update. Acts as identity except on rows
+    i and j:  y_i = c x_i + s x_j ;  y_j = -conj(s) x_i + c x_j.
+    """
+
+    def __init__(self, n: int, i: int, j: int, c, s):
+        check(0 <= i < n and 0 <= j < n and i != j, "bad Givens indices")
+        self.i, self.j, self.c, self.s = i, j, c, s
+        self._shape = (n, n)
+        self._dtype = np.result_type(type(c), type(s), np.float64)
+
+    def _matmat(self, X):
+        Y = X.astype(np.result_type(self.dtype, X.dtype), copy=True)
+        xi, xj = X[self.i], X[self.j]
+        Y[self.i] = self.c * xi + self.s * xj
+        Y[self.j] = -np.conj(self.s) * xi + self.c * xj
+        return Y
+
+    def _rmatmat(self, X):
+        Y = X.astype(np.result_type(self.dtype, X.dtype), copy=True)
+        xi, xj = X[self.i], X[self.j]
+        Y[self.i] = np.conj(self.c) * xi - self.s * xj
+        Y[self.j] = np.conj(self.s) * xi + np.conj(self.c) * xj
+        return Y
+
+    def nbytes(self):
+        return 32
 
 
 class Product(LinOp):
@@ -796,6 +831,61 @@ class Coo(LinOp):
         rev[perm] = np.arange(self.shape[0])
         return Coo(self.shape, rev[self.row_inds], rev[self.col_inds],
                    self.values)
+
+
+class IndexedBlock:
+    """A positioned block {i0, j0, op} (reference: indexed_mat.c,
+    include/bf/types.h:7-12)."""
+
+    __slots__ = ("i0", "j0", "op")
+
+    def __init__(self, i0: int, j0: int, op: LinOp):
+        self.i0, self.j0, self.op = int(i0), int(j0), op
+
+    def __repr__(self):
+        return f"IndexedBlock(i0={self.i0}, j0={self.j0}, op={self.op!r})"
+
+
+def block_coo_from_indexed(
+    shape: tuple[int, int], indexed: Sequence[IndexedBlock]
+) -> BlockCoo:
+    """Assemble a BlockCoo from positioned blocks
+    (reference: bfMatBlockCooNewFromIndexedBlocks, src/fac.c:835).
+
+    Block row/col boundaries are derived from the distinct i0/j0 extents;
+    every block must align with that grid (no block is split).
+    """
+    check(len(indexed) > 0, "need at least one indexed block")
+    row_edges = sorted({ib.i0 for ib in indexed}
+                       | {ib.i0 + ib.op.shape[0] for ib in indexed}
+                       | {0, shape[0]})
+    col_edges = sorted({ib.j0 for ib in indexed}
+                       | {ib.j0 + ib.op.shape[1] for ib in indexed}
+                       | {0, shape[1]})
+    row_offsets = np.asarray(row_edges, dtype=np.int64)
+    col_offsets = np.asarray(col_edges, dtype=np.int64)
+    row_lookup = {int(v): i for i, v in enumerate(row_offsets[:-1])}
+    col_lookup = {int(v): j for j, v in enumerate(col_offsets[:-1])}
+    row_inds, col_inds, blocks = [], [], []
+    for ib in indexed:
+        i = row_lookup[ib.i0]
+        j = col_lookup[ib.j0]
+        check(
+            int(row_offsets[i + 1] - row_offsets[i]) == ib.op.shape[0]
+            and int(col_offsets[j + 1] - col_offsets[j]) == ib.op.shape[1],
+            "indexed block does not align with derived block grid",
+        )
+        row_inds.append(i)
+        col_inds.append(j)
+        blocks.append(ib.op)
+    return BlockCoo(row_offsets, col_offsets, row_inds, col_inds, blocks)
+
+
+def aslinop(x) -> LinOp:
+    """Coerce an array or LinOp to a LinOp."""
+    if isinstance(x, LinOp):
+        return x
+    return Dense(np.asarray(x))
 
 
 def hpad(op: LinOp, left: int, right: int) -> LinOp:

@@ -4,7 +4,8 @@ Port counterpart of the host half of `butterfly_tpu/ops/special.py`
 (`hankel1_0_host`, `hankel1_1_host`, :182-187): scipy's Hankel functions of
 the first kind, evaluated in float64 at factorization time. The JAX
 package's jnp series (:85-180) serves only its `Helm2.kernel_matrix_jnp`,
-which the port does not carry; the port assembles kernels on the host.
+whose only caller is its test `tests/test_helm2.py:29`; the port does not
+carry either (see `ops/helm2.py`) and assembles kernels on the host.
 """
 
 from __future__ import annotations

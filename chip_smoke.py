@@ -133,11 +133,25 @@ each printing its numbers on lines of their own:
      against `pass_plain`, 512 rows of its scores to 1e-6 against the
      distilled factors in float64, recall of every format printed, K1
      timed beside its plain passes, the per-level einsum and the dense
-     `Q @ Phi.T` + `torch.topk`.
+     `Q @ Phi.T` + `torch.topk`;
+ 13. radiosity (`butterfly_tpu_torch/geom/visibility.py`,
+     `models/radiosity.py`, the `radiosity` twin; eager torch ops, no
+     kernel, as the JAX package's jitted jnp): (a) 16,384 random triangles
+     and 2^20 rays (`default_rng(13)`), the octree-culled visibility
+     (leaf 512) equal to brute force ray for ray on the card, the card
+     against the CPU on 4096 rays (each disagreement printed with its
+     float64 margin, failing above 1e-5), both paths timed and the culled
+     path's host share read by `torch.profiler` on a slice; (b) the
+     occlusion-aware assembly of icosphere(3) equal to the plain one
+     (1,637,120 nonzeros, no pair occluded); (c) the twin on icosphere(5),
+     F dense in float64 on the card (3.36 GB): 4096 entries against the
+     scalar formula (1e-12 relative), row sums in [1.00005, 1.0002], GMRES
+     in 3-6 iterations, fixed-point residual 1e-8, B[0] >= 1, B >= -1e-12,
+     the assembly seconds and the ms per matvec against 8 n^2 / 3.35 TB/s.
 
 Each part of the main path (phases 4 and 5 through K1, phases 6 and 7
 through K2, phase 9 through K1, phase 10 through K2, phases 11 and 12
-through K1)
+through K1; phases 8 and 13 must launch neither)
 runs with the launch counts set to 0 just before and read just after.
 Times are medians of CUDA-event timings after warm-up. The last lines are
 one JSON object describing the kernels, the `nvidia-smi` line, and the
@@ -694,6 +708,194 @@ def lbo_phase(dev, timer, band=(5, 256), table=(5, 1024)):
     print("[12 lbo] K1 on the LBO table's deep_fused: " + json.dumps(case),
           flush=True)
     return case, launches, rec
+
+
+def _vf_reference(cent, norm, area, i, j):
+    """Scalar float64 transcription of integrateViewFactorMidpointRule
+    (src/mat_csr_real.c:387-405), the JAX test's `_reference_view_factor`."""
+    if i == j:
+        return 0.0
+    dp = cent[i] - cent[j]
+    dot_src = norm[i] @ dp
+    dot_tgt = -norm[j] @ dp
+    r2 = dp @ dp
+    return area[j] * max(0.0, dot_src) * max(0.0, dot_tgt) / (
+        np.pi * r2 * r2)
+
+
+def _ray_margin(o, d, tris, skip, t_lo=1e-6, t_hi=1.0 - 1e-6):
+    """Float64 distance of one ray's hit decision from its boundary: the
+    least over the triangles (its skipped faces left out) of |min(u, v,
+    1-u-v, t-t_lo, t_hi-t)|, the quantity float32 rounding can flip."""
+    o, d = np.asarray(o, np.float64), np.asarray(d, np.float64)
+    t0 = tris[:, 0].astype(np.float64)
+    e1 = tris[:, 1] - tris[:, 0]
+    e2 = tris[:, 2] - tris[:, 0]
+    p = np.cross(d, e2)
+    det = np.einsum("fk,fk->f", p, e1)
+    tv = o - t0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = np.einsum("fk,fk->f", tv, p) / det
+        q = np.cross(tv, e1)
+        v = (q @ d) / det
+        t = np.einsum("fk,fk->f", e2, q) / det
+    m = np.abs(np.minimum.reduce([u, v, 1 - u - v, t - t_lo, t_hi - t]))
+    keep = np.isfinite(m) & ~np.isin(np.arange(len(tris)), skip)
+    return float(m[keep].min())
+
+
+def radiosity_phase(dev, smi, vis=(16384, 1 << 20), occ_subdiv=3,
+                    subdiv=5):
+    """Phase 13: radiosity (no kernel: eager torch ops, as the JAX
+    package's jitted jnp). (a) visibility on 16,384 random triangles of
+    size 0.08 in the unit cube and 2^20 rays (`default_rng(13)`): the
+    culled path (`CulledVisibility`, leaf 512) against brute-force
+    `ray_hits_any`, both on the card, equal ray for ray; the card against
+    the CPU on 4096 rays, every disagreement printed with its float64
+    margin (failing above 1e-5); both paths timed, and the culled path's
+    host share read from a profiled slice; (b) `view_factor_matrix` of
+    icosphere(3) with occlusion equal to the assembly without (1,637,120
+    nonzeros, no pair occluded); (c) the radiosity twin on icosphere(5)
+    (20,480 faces, F dense float64 on the card): 4096 sampled entries
+    against the scalar formula (1e-12 relative), row sums in [1.00005,
+    1.0002], GMRES (rho 0.3, E = e_0, tol 1e-10) in 3-6 iterations,
+    fixed-point residual <= 1e-8, B[0] >= 1 and B >= -1e-12. `vis` is
+    (triangles, rays) of (a), `occ_subdiv` and `subdiv` the icospheres of
+    (b) and (c). Returns the phase's record."""
+    from butterfly_tpu_torch.examples import radiosity as twin
+    from butterfly_tpu_torch.geom import icosphere
+    from butterfly_tpu_torch.geom.visibility import (
+        CulledVisibility,
+        ray_hits_any,
+    )
+    from butterfly_tpu_torch.models.radiosity import view_factor_matrix
+    from butterfly_tpu_torch.utils.profiling import device_trace
+
+    def clock(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    tag = f"[13 radiosity] ({smi})"
+    rec = {}
+    # ---- (a) visibility -------------------------------------------------
+    rng = np.random.default_rng(13)
+    nT, nR = vis
+    c = rng.random((nT, 1, 3))
+    tris = c + 0.08 * (rng.random((nT, 3, 3)) - 0.5)
+    orig = rng.random((nR, 3))
+    dirs = rng.random((nR, 3)) - orig
+    skip = rng.integers(-1, nT, (nR, 2)).astype(np.int32)
+    tris32 = tris.astype(np.float32)
+
+    brute, brute_s = clock(lambda: ray_hits_any(orig, dirs, tris,
+                                                skip_idx=skip, device=dev))
+    cv, build_s = clock(lambda: CulledVisibility(tris, leaf_size=512,
+                                                 device=dev))
+    culled, culled_s = clock(lambda: cv.ray_hits_any(orig, dirs,
+                                                     skip_idx=skip))
+    bad = np.nonzero(culled != brute)[0]
+    for i in bad[:20]:
+        print(f"{tag} (a) culled != brute at ray {i}: margin "
+              f"{_ray_margin(orig[i], dirs[i], tris32, skip[i]):.3e}")
+    require(bad.size == 0, f"culled visibility differs from brute force on "
+            f"{bad.size} of {nR} rays")
+    # the card against the CPU, 4096 rays
+    nS = 4096
+    t0 = time.perf_counter()
+    on_cpu = ray_hits_any(orig[:nS], dirs[:nS], tris, skip_idx=skip[:nS],
+                          device="cpu")
+    cpu_s = time.perf_counter() - t0
+    flips = np.nonzero(on_cpu != brute[:nS])[0]
+    margins = [_ray_margin(orig[i], dirs[i], tris32, skip[i])
+               for i in flips]
+    for i, m in zip(flips, margins):
+        print(f"{tag} (a) card != cpu at ray {i}: card {brute[i]}, margin "
+              f"{m:.3e}")
+    require(all(m <= 1e-5 for m in margins),
+            f"card and CPU disagree on a ray {max(margins, default=0):.3e} from its "
+            "boundary")
+    # the culled path's host share, on a slice of 4 ray chunks
+    nP = 4 * 16384
+    _, slice_s = clock(lambda: cv.ray_hits_any(orig[:nP], dirs[:nP],
+                                               skip_idx=skip[:nP]))
+    with device_trace(str(ROOT / "build" / "trace_phase13")) as prof:
+        cv.ray_hits_any(orig[:nP], dirs[:nP], skip_idx=skip[:nP])
+        torch.cuda.synchronize(dev)
+    ops = prof.key_averages()
+    busy_s = 1e-6 * sum(getattr(e, "self_device_time_total", 0) for e in ops)
+    # where the host's time goes: torch ops by their own CPU time (the
+    # rest of the slice is NumPy and Python: the slab test, selections)
+    top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]
+    host_ops = [(e.key, 1e-3 * e.self_cpu_time_total, e.count) for e in top]
+    torch_cpu_s = 1e-6 * sum(e.self_cpu_time_total for e in ops)
+    vis = dict(
+        triangles=nT, rays=nR, hit_share=float(brute.mean()),
+        groups=cv.num_groups, group_pad=cv.group_pad,
+        brute_s=brute_s, culled_build_s=build_s, culled_s=culled_s,
+        cpu_rays=nS, cpu_s=cpu_s, card_cpu_disagreements=int(flips.size),
+        card_cpu_margins=margins, slice_rays=nP, slice_s=slice_s,
+        slice_device_busy_s=busy_s if busy_s > 0 else "not measured",
+        slice_host_share=(1 - busy_s / slice_s) if busy_s > 0
+        else "not measured",
+        slice_profiled_torch_cpu_s=torch_cpu_s,
+        slice_top_torch_ops_cpu_ms_count=host_ops)
+    print(f"{tag} (a) visibility: " + json.dumps(vis), flush=True)
+    rec["visibility"] = vis
+    del cv
+    # ---- (b) occlusion on a convex mesh ---------------------------------
+    m3 = icosphere(occ_subdiv)
+    tm = {}
+    F_occ = view_factor_matrix(m3, occlusion=True, sparse=False, device=dev,
+                               timings=tm)
+    F_free = view_factor_matrix(m3, sparse=False, device=dev)
+    nnz = int(torch.count_nonzero(F_occ))
+    occluded = int(torch.count_nonzero((F_free != 0) & (F_occ == 0)))
+    require(torch.equal(F_occ, F_free) and occluded == 0,
+            f"icosphere(3): occlusion zeroed {occluded} pairs")
+    # on a convex sphere every pair but the self-pair sees the other:
+    # 1,637,120 at icosphere(3), as the JAX package reads
+    require(nnz == m3.num_faces * (m3.num_faces - 1),
+            f"icosphere(3): {nnz} nonzeros")
+    occ = dict(faces=m3.num_faces, nnz=nnz, occluded=occluded,
+               rays=nnz, assembly_s=tm["assembly_s"],
+               visibility_s=tm["visibility_s"])
+    print(f"{tag} (b) occlusion on icosphere(3): " + json.dumps(occ),
+          flush=True)
+    rec["occlusion"] = occ
+    del F_occ, F_free
+    # ---- (c) icosphere(5) through the twin -----------------------------
+    m5 = icosphere(subdiv)
+    run = twin.run(m5, rho=0.3, device=dev,
+                   log=lambda line: print(f"{tag} (c) {line}", flush=True))
+    F, B = run.pop("F"), run.pop("B")
+    n = m5.num_faces
+    cent, norm, area = (m5.face_centroids(), m5.face_normals(),
+                        m5.face_areas())
+    ij = np.random.default_rng(5).integers(0, n, (4096, 2))
+    got = F[torch.as_tensor(ij[:, 0], device=dev),
+            torch.as_tensor(ij[:, 1], device=dev)].cpu().numpy()
+    want = np.array([_vf_reference(cent, norm, area, i, j) for i, j in ij])
+    zero = want == 0
+    require(np.all(got[zero] == 0), "a zero view factor reads nonzero")
+    rel = float(np.max(np.abs(got[~zero] - want[~zero]) / want[~zero]))
+    require(rel <= 1e-12, f"icosphere(5) sampled F entries {rel:.3e}")
+    require(1.00005 <= run["row_sum_min"] and run["row_sum_max"] <= 1.0002,
+            f"row sums [{run['row_sum_min']}, {run['row_sum_max']}]")
+    require(3 <= run["gmres_iters"] <= 6,
+            f"GMRES took {run['gmres_iters']} iterations")
+    require(run["fixed_point_residual"] <= 1e-8,
+            f"fixed-point residual {run['fixed_point_residual']:.3e}")
+    require(float(B[0]) >= 1.0 and float(B.min()) >= -1e-12,
+            f"B[0] {float(B[0])}, min B {float(B.min())}")
+    run.update(sampled_entries=len(ij), sampled_max_rel_err=rel,
+               B0=float(B[0]), B_min=float(B.min()))
+    print(f"{tag} (c) icosphere(5): " + json.dumps(run), flush=True)
+    rec["icosphere5"] = run
+    del F, B
+    return rec
 
 
 def main() -> int:
@@ -1426,6 +1628,15 @@ def main() -> int:
     k1_lbo, launches_L, lbo = lbo_phase(dev, device_time)
     torch.cuda.empty_cache()
 
+    # ---- 13. radiosity: view factors, visibility, the solve -------------
+    K1.launches = 0
+    K2.launches = 0
+    rad = radiosity_phase(dev, smi)
+    torch.cuda.synchronize()
+    require(K1.launches == 0 and K2.launches == 0,
+            "the radiosity phase launched K1 or K2")
+    torch.cuda.empty_cache()
+
     # ---- the record -----------------------------------------------------
     head = results["flagship bf16"]
     kernels = {"kernels": [{
@@ -1449,7 +1660,8 @@ def main() -> int:
                   "retrieval deep_fused": k1_retrieval,
                   "bridge fused_apply": k1_bridge,
                   "LBO table deep_fused": k1_lbo,
-                  "LBO and covariance (no kernel)": lbo},
+                  "LBO and covariance (no kernel)": lbo,
+                  "radiosity (no kernel)": rad},
     }, {
         "name": "k2_cell",
         "route": "cuda",

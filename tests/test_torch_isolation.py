@@ -24,9 +24,11 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.examples.helm2_scale",
     "butterfly_tpu_torch.examples.multiple_scattering",
     "butterfly_tpu_torch.examples.partition_floor",
+    "butterfly_tpu_torch.examples.radiosity",
     "butterfly_tpu_torch.examples.real_fac_scale",
     "butterfly_tpu_torch.examples.retrieval",
     "butterfly_tpu_torch.examples.retrieval_lbo",
+    "butterfly_tpu_torch.examples.tree_evaluator",
     "butterfly_tpu_torch.fac",
     "butterfly_tpu_torch.fac.device_solve",
     "butterfly_tpu_torch.fac.distill",
@@ -43,15 +45,20 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.geom.points",
     "butterfly_tpu_torch.geom.poisson_disk",
     "butterfly_tpu_torch.geom.trimesh",
+    "butterfly_tpu_torch.geom.visibility",
+    "butterfly_tpu_torch.io",
+    "butterfly_tpu_torch.io.serialization",
     "butterfly_tpu_torch.models",
     "butterfly_tpu_torch.models.covariance",
     "butterfly_tpu_torch.models.lbo",
+    "butterfly_tpu_torch.models.radiosity",
     "butterfly_tpu_torch.models.retrieval",
     "butterfly_tpu_torch.ops",
     "butterfly_tpu_torch.ops.butterfly",
     "butterfly_tpu_torch.ops.cellsp",
     "butterfly_tpu_torch.ops.cheb",
     "butterfly_tpu_torch.ops.device_eigs",
+    "butterfly_tpu_torch.ops.eval_tree",
     "butterfly_tpu_torch.ops.fused_butterfly",
     "butterfly_tpu_torch.ops.helm2",
     "butterfly_tpu_torch.ops.hostpack",
@@ -74,6 +81,7 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.utils.nvcc",
     "butterfly_tpu_torch.utils.oracle",
     "butterfly_tpu_torch.utils.prng",
+    "butterfly_tpu_torch.utils.profiling",
     "butterfly_tpu_torch.utils.timer",
 ]
 
@@ -163,6 +171,21 @@ assert raises(lambda: covariance.main(["--subdiv", "1", "--eigensolver",
 assert raises(lambda: retrieval_lbo.main(["--subdiv", "2", "--num-eigs",
                                           "8"]))
 assert raises(lambda: partition_floor.main(["--sizes", "256"]))
+from butterfly_tpu_torch.examples import radiosity as radiosity_twin
+from butterfly_tpu_torch.geom.visibility import (
+    CulledVisibility, ray_hits_any, segment_occluded)
+from butterfly_tpu_torch.io.serialization import load_butterfly
+from butterfly_tpu_torch.models.radiosity import (
+    RadiosityModel, view_factor_matrix)
+tris = np.random.default_rng(0).random((8, 3, 3))
+rays = np.ones((4, 3))
+assert raises(lambda: ray_hits_any(rays, rays, tris))
+assert raises(lambda: CulledVisibility(tris, leaf_size=4))
+assert raises(lambda: segment_occluded(icosphere(1), [0], [5]))
+assert raises(lambda: view_factor_matrix(icosphere(1)))
+assert raises(lambda: RadiosityModel(icosphere(1), 0.3))
+assert raises(lambda: radiosity_twin.main(["--subdiv", "1"]))
+assert raises(lambda: load_butterfly("missing.npz"))
 print("isolated")
 """
 
