@@ -147,12 +147,30 @@ each printing its numbers on lines of their own:
      F dense in float64 on the card (3.36 GB): 4096 entries against the
      scalar formula (1e-12 relative), row sums in [1.00005, 1.0002], GMRES
      in 3-6 iterations, fixed-point residual 1e-8, B[0] >= 1, B >= -1e-12,
-     the assembly seconds and the ms per matvec against 8 n^2 / 3.35 TB/s.
+     the assembly seconds and the ms per matvec against 8 n^2 / 3.35 TB/s;
+ 14. multi-device on the one card (`butterfly_tpu_torch/parallel/`, the
+     `multidevice` twin): gloo ranks, one process each, all sharing the
+     card (NCCL refuses two ranks on one GPU), their collectives staged
+     through the host. (a) `ShardedButterfly` of phase 4's f32 flagship
+     (r=256) over 4 ranks: each runs the leaf and 8 local levels on K1 over
+     256 blocks, the one all-to-all (25,165,824 elements moved, checked
+     against `expected_exchange_elems`), then the 2 top levels; the
+     gathered, unpermuted output held to 1e-5 against the single-process
+     `FusedButterflyPlan` apply (bit-equality printed), each rank's K1
+     passes to 1e-5 against their plain passes; per rank the local stage,
+     exchange, top levels and whole apply timed, beside phase 4's f32
+     flagship. (b) `PipelinedButterfly` of the same butterfly over 2 stage
+     ranks, 4 microbatches, r=256: held to 1e-5 against the
+     single-process `bf.apply`, ms per apply, steps, bubble share and the
+     message of a rotation. (c) `dryrun_multichip(4)` (mesh data 2 x model
+     2) with its checks. The ranks time-share the card's SMs: these are
+     not scaling numbers.
 
 Each part of the main path (phases 4 and 5 through K1, phases 6 and 7
 through K2, phase 9 through K1, phase 10 through K2, phases 11 and 12
-through K1; phases 8 and 13 must launch neither)
-runs with the launch counts set to 0 just before and read just after.
+through K1, phase 14 (a) through K1 in each rank; phases 8 and 13 must
+launch neither) runs with the launch counts set to 0 just before and read
+just after; a rank counts its own launches and reports them.
 Times are medians of CUDA-event timings after warm-up. The last lines are
 one JSON object describing the kernels, the `nvidia-smi` line, and the
 result object. Any failed check exits non-zero; nothing is caught and
@@ -1637,6 +1655,30 @@ def main() -> int:
             "the radiosity phase launched K1 or K2")
     torch.cuda.empty_cache()
 
+    # ---- 14. multi-device: gloo ranks sharing the one card ---------------
+    # A rank's failure is raised here (`run_ranks`) and ends the script.
+    from butterfly_tpu_torch.entry import dryrun_multichip
+    from butterfly_tpu_torch.examples import multidevice
+
+    print("[14 multi-device] gloo ranks time-share this one card and stage "
+          "their exchanges through the host: not scaling numbers",
+          flush=True)
+    md = multidevice.run(dev, ranks=4, stages=2, micro=4, r=256, iters=10)
+    launches_M = md["sharded"]["k1_launches"]
+    md["sharded"]["phase4_f32_flagship_ms"] = results["flagship f32"]["ms"]
+    print("[14 multi-device] (a) sharded flagship: "
+          + json.dumps(md["sharded"]), flush=True)
+    print("[14 multi-device] (b) pipelined flagship: "
+          + json.dumps(md["pipelined"]), flush=True)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device=dev, backend="gloo")
+    dry = {k: v for k, v in dry.items() if not isinstance(v, (np.ndarray,
+                                                               list))}
+    dry["wall_s"] = time.perf_counter() - t0
+    print("[14 multi-device] (c) dryrun_multichip(4): " + json.dumps(dry),
+          flush=True)
+    torch.cuda.empty_cache()
+
     # ---- the record -----------------------------------------------------
     head = results["flagship bf16"]
     kernels = {"kernels": [{
@@ -1644,7 +1686,8 @@ def main() -> int:
         "route": "cuda",
         "source": "butterfly_tpu_torch/csrc/k1_pass.cu",
         "replaces": "butterfly_tpu/ops/pallas_butterfly.py:132",
-        "launches": launches + launches_R + launches_F + launches_L,
+        "launches": (launches + launches_R + launches_F + launches_L
+                     + launches_M),
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1655,11 +1698,15 @@ def main() -> int:
         "paths": ["4 flagship", "5 real fac", "9 retrieval deep_fused",
                   "11 bridge: fused_apply of distill_butterfly_device and "
                   "distill_butterfly_batch",
-                  "12 LBO eigenvector table deep_fused"],
+                  "12 LBO eigenvector table deep_fused",
+                  "14 sharded butterfly (per rank)"],
         "cases": {"flagship f32": results["flagship f32"], "real fac": real,
                   "retrieval deep_fused": k1_retrieval,
                   "bridge fused_apply": k1_bridge,
                   "LBO table deep_fused": k1_lbo,
+                  "sharded flagship (4 gloo ranks, one card)": md["sharded"],
+                  "pipelined flagship (no kernel)": md["pipelined"],
+                  "dryrun_multichip(4) (no kernel)": dry,
                   "LBO and covariance (no kernel)": lbo,
                   "radiosity (no kernel)": rad},
     }, {

@@ -22,6 +22,7 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.examples.fiedler_tree",
     "butterfly_tpu_torch.examples.helm2_bie",
     "butterfly_tpu_torch.examples.helm2_scale",
+    "butterfly_tpu_torch.examples.multidevice",
     "butterfly_tpu_torch.examples.multiple_scattering",
     "butterfly_tpu_torch.examples.partition_floor",
     "butterfly_tpu_torch.examples.radiosity",
@@ -68,6 +69,11 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.ops.quadrature",
     "butterfly_tpu_torch.ops.special",
     "butterfly_tpu_torch.ops.svd",
+    "butterfly_tpu_torch.parallel",
+    "butterfly_tpu_torch.parallel.launch",
+    "butterfly_tpu_torch.parallel.pipeline",
+    "butterfly_tpu_torch.parallel.sharding",
+    "butterfly_tpu_torch.parallel.shmap_butterfly",
     "butterfly_tpu_torch.trees",
     "butterfly_tpu_torch.trees.fiedler_tree",
     "butterfly_tpu_torch.trees.interval_tree",
@@ -186,6 +192,19 @@ assert raises(lambda: view_factor_matrix(icosphere(1)))
 assert raises(lambda: RadiosityModel(icosphere(1), 0.3))
 assert raises(lambda: radiosity_twin.main(["--subdiv", "1"]))
 assert raises(lambda: load_butterfly("missing.npz"))
+from butterfly_tpu_torch.entry import dryrun_multichip
+from butterfly_tpu_torch.examples import multidevice
+from butterfly_tpu_torch.parallel.launch import run_programs, run_ranks
+from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
+assert raises(lambda: run_ranks(run_programs, 2, backend="gloo", args=([],)))
+assert raises(lambda: dryrun_multichip(2))
+assert raises(lambda: multidevice.main(["--ranks", "2"]))
+try:  # NCCL takes one rank per card: no silent switch to gloo
+    run_ranks(run_programs, 2, device="cuda", backend="nccl", args=([],))
+    refused = False
+except InvalidArgumentsError as exc:
+    refused = "NCCL" in str(exc) and "backend='gloo'" in str(exc)
+assert refused
 print("isolated")
 """
 
