@@ -25,6 +25,6 @@ modules it needs are copied. Entry points run on CUDA unless called with
 
 __version__ = "0.1.0"
 
-from butterfly_tpu_torch.config import FacSpec
+from butterfly_tpu_torch.config import DeviceConfig, FacSpec
 
-__all__ = ["FacSpec", "__version__"]
+__all__ = ["DeviceConfig", "FacSpec", "__version__"]

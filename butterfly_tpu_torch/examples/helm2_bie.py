@@ -16,8 +16,12 @@ two-pass cell program (`partition_apply_plan`, kernel K2), the
 tree-permuted accumulate corrector on the card (`KrAccumCorrector`, torch
 ops), and `solve_gmres_plan` (tol 3e-7, the scale twin's: a float32
 basis floors near 1e-7; max_iter 400 and no restarts, as the JAX script's
-host GMRES) on sys(v) = 0.5 v + plan(v w) + corr(v w) in the interleaved
-real embedding.
+host GMRES) on sys(v) = 0.5 v + plan(v w) + corr(v w). The plan applies
+the interleaved real embedding (row 2i = Re_i, 2i+1 = Im_i), which is
+torch's complex layout: GMRES runs a complex64 basis on the card
+(`sys_apply_complex`, a view of the same storage), as the JAX script's
+host GMRES runs a complex one. `solve(..., basis="real")` runs the real
+basis on the embedding instead (about twice the iterations).
 It prints the same lines for that solve and one JSON row: `n, k, mvp_rel`
 (the card system against the dense float64 system, in tree order),
 `gmres_iters, gmres_s, ms_per_iter, k2_launches` (over the solve),
@@ -64,6 +68,7 @@ from butterfly_tpu_torch.ops.quadrature import (
 )
 from butterfly_tpu_torch.trees import Quadtree
 from butterfly_tpu_torch.utils.device import resolve_device
+from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 from butterfly_tpu_torch.utils.timer import device_time
 
 # the card solve: helm2_scale's tolerance; the JAX script's max_iter, run
@@ -79,10 +84,10 @@ def rel(got, want) -> float:
 @dataclasses.dataclass
 class CardBie:
     """The BIE system 0.5 I + (K + C) W on a device, in tree order and the
-    interleaved real embedding (row 2i = Re_i, 2i+1 = Im_i): K compiled
-    into a partition plan from the host operator `A_bf` (tree order), C
-    the tree-permuted accumulate corrector, W the quadrature weights `w`
-    (original order)."""
+    interleaved real embedding (row 2i = Re_i, 2i+1 = Im_i), which is the
+    memory layout of a complex tensor: K compiled into a partition plan
+    from the host operator `A_bf` (tree order), C the tree-permuted
+    accumulate corrector, W the quadrature weights `w` (original order)."""
 
     plan: PartitionPlan
     corr: KrAccumCorrector
@@ -101,21 +106,31 @@ class CardBie:
         return (0.5 * v + self.plan.apply(u[:, None])[:, 0]
                 + self.corr.apply(u))
 
+    def sys_apply_complex(self, z: torch.Tensor) -> torch.Tensor:
+        """The system on a complex64 (n,) vector: `sys_apply` on its
+        interleaved real view, the result viewed as complex again."""
+        return torch.view_as_complex(
+            self.sys_apply(torch.view_as_real(z).reshape(-1)).reshape(-1, 2))
+
+    def to_card_complex(self, z: np.ndarray) -> torch.Tensor:
+        """Complex (n,) in original order -> complex64 (n,) in tree order,
+        on the device."""
+        zp = np.asarray(z, np.complex64)[self.perm]
+        return torch.from_numpy(zp).to(self.device)
+
     def to_card(self, z: np.ndarray) -> torch.Tensor:
         """Complex (n,) in original order -> interleaved float32 (2n,) in
-        tree order, on the device."""
-        zp = np.asarray(z)[self.perm]
-        x = np.empty(2 * zp.size, np.float32)
-        x[0::2], x[1::2] = zp.real, zp.imag
-        return torch.from_numpy(x).to(self.device)
+        tree order, on the device: the real view of `to_card_complex`."""
+        return torch.view_as_real(self.to_card_complex(z)).reshape(-1)
 
     def from_card(self, x) -> np.ndarray:
-        """Interleaved (2n,) in tree order -> complex128 (n,) in original
-        order, on the host."""
-        x = (x.double().cpu().numpy() if isinstance(x, torch.Tensor)
-             else np.asarray(x, np.float64))
-        out = np.empty(x.size // 2, np.complex128)
-        out[self.perm] = x[0::2] + 1j * x[1::2]
+        """Interleaved real (2n,) or complex (n,) in tree order, a tensor
+        or numpy -> complex128 (n,) in original order, on the host."""
+        x = torch.as_tensor(x)
+        if not x.is_complex():
+            x = torch.view_as_complex(x.double().reshape(-1, 2))
+        out = np.empty(x.shape[0], np.complex128)
+        out[self.perm] = x.cpu().numpy()
         return out
 
     def residual_floor(self, sigma: np.ndarray, rhs: np.ndarray) -> dict:
@@ -140,15 +155,21 @@ class CardBie:
             "floor_from_corrector": float(np.linalg.norm(
                 got_corr[self.perm] - self.corr.apply(u)) / bnorm)}
 
-    def solve(self, rhs: np.ndarray):
+    def solve(self, rhs: np.ndarray, basis: str = "complex"):
         """GMRES on the device for a complex right-hand side in original
-        order. Returns (sigma in original order, GMRES result, seconds, K2
+        order: a complex64 Krylov basis on `sys_apply_complex`, or with
+        `basis="real"` a float32 one on the interleaved real embedding.
+        Returns (sigma in original order, GMRES result, seconds, K2
         launches over the solve)."""
-        b2 = self.to_card(rhs)
+        check(basis in ("complex", "real"), f"basis {basis!r}",
+              InvalidArgumentsError)
+        if basis == "complex":
+            b, op = self.to_card_complex(rhs), self.sys_apply_complex
+        else:
+            b, op = self.to_card(rhs), self.sys_apply
         launches = K2.launches
         t0 = time.perf_counter()
-        res = solve_gmres_plan(self.sys_apply, b2, tol=GMRES_TOL,
-                               restart=GMRES_MAX_ITER,
+        res = solve_gmres_plan(op, b, tol=GMRES_TOL, restart=GMRES_MAX_ITER,
                                max_iter=GMRES_MAX_ITER)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

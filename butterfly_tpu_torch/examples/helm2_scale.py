@@ -6,9 +6,12 @@ Helmholtz combined-field operator D - ikS on an ellipse (1, 0.7, rotated
 compiles it into the two-pass cell program (`partition_apply_plan`, kernel
 K2 on the card), checks the apply against a row-sampled dense oracle
 (`utils/oracle.py`: no dense operator exists at these sizes), and solves
-the second-kind BIE with `solve_gmres_plan` (Krylov basis on the card, one
-Hessenberg column to the host per iteration), so the solve takes about
-iterations x apply.
+the second-kind BIE with `solve_gmres_plan` (a complex64 Krylov basis on
+the card over the plan's interleaved real embedding, which is torch's
+complex layout; one Hessenberg column to the host per iteration), so the
+solve takes about iterations x apply. `Helm2Scale.solve(basis="real")`
+runs the real basis on the embedding instead, as the JAX script's TPU
+drivers must.
 
 Usage:
   python -m butterfly_tpu_torch.examples.helm2_scale --sizes 16384
@@ -50,6 +53,7 @@ from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
 from butterfly_tpu_torch.ops.linalg import solve_gmres_plan
 from butterfly_tpu_torch.trees import Quadtree
 from butterfly_tpu_torch.utils.device import resolve_device
+from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 from butterfly_tpu_torch.utils.oracle import row_oracle_rel_err
 from butterfly_tpu_torch.utils.timer import device_time
 
@@ -80,16 +84,43 @@ class Helm2Scale:
         W the quadrature weights."""
         return 0.5 * v + self.plan.apply((v * self.wp2)[:, None])[:, 0]
 
-    def rhs(self) -> torch.Tensor:
-        """Interleaved single-layer field of an interior source at
-        (0.1, -0.05): the reference flagship's right-hand side
-        (examples/simple/helm2_bie.c:162-175)."""
+    def sys_apply_complex(self, z: torch.Tensor) -> torch.Tensor:
+        """The system on a complex64 (n,) vector, through `sys_apply` on
+        its interleaved real view."""
+        return torch.view_as_complex(
+            self.sys_apply(torch.view_as_real(z).reshape(-1)).reshape(-1, 2))
+
+    def rhs_complex(self) -> torch.Tensor:
+        """Single-layer field of an interior source at (0.1, -0.05), complex64
+        in tree order on the plan's device: the reference flagship's
+        right-hand side (examples/simple/helm2_bie.c:162-175)."""
         x_src = np.array([[0.1, -0.05]])
         u = Helm2(k=self.k, layer_pot=LayerPot.SINGLE).kernel_matrix(
             x_src, self.Xp)[:, 0]
-        b2 = np.empty(2 * u.size, np.float32)
-        b2[0::2], b2[1::2] = u.real, u.imag
-        return torch.from_numpy(b2).to(self.plan.device)
+        return torch.from_numpy(u.astype(np.complex64)).to(self.plan.device)
+
+    def rhs(self) -> torch.Tensor:
+        """The right-hand side interleaved (the real view of
+        `rhs_complex`)."""
+        return torch.view_as_real(self.rhs_complex()).reshape(-1)
+
+    def solve(self, basis: str = "complex"):
+        """GMRES (the JAX script's settings) on the card: a complex64 basis
+        on `sys_apply_complex`, or with `basis="real"` a float32 one on the
+        interleaved embedding. Returns (GMRES result, seconds, K2 launches
+        over the solve)."""
+        check(basis in ("complex", "real"), f"basis {basis!r}",
+              InvalidArgumentsError)
+        b, op = ((self.rhs_complex(), self.sys_apply_complex)
+                 if basis == "complex" else (self.rhs(), self.sys_apply))
+        dev = self.plan.device
+        launches = K2.launches
+        t0 = time.perf_counter()
+        res = solve_gmres_plan(op, b, tol=GMRES_TOL, restart=GMRES_RESTART,
+                               max_iter=GMRES_MAX_ITER)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t0, K2.launches - launches
 
 
 @dataclasses.dataclass
@@ -204,21 +235,13 @@ def measure(prob: Helm2Scale, queries: int = 64) -> dict:
     rec["rel_err_vs_dense"] = rel
     log(f"  rel err vs dense (128-row oracle): {rel:.3e}")
 
-    # ---- GMRES on the second-kind BIE -----------------------------------
-    b2 = prob.rhs()
-    launches = K2.launches
-    t0 = time.perf_counter()
-    res = solve_gmres_plan(prob.sys_apply, b2, tol=GMRES_TOL,
-                           restart=GMRES_RESTART, max_iter=GMRES_MAX_ITER)
-    if on_card:
-        torch.cuda.synchronize(dev)
-    rec["gmres_s"] = time.perf_counter() - t0
+    # ---- GMRES on the second-kind BIE (complex basis) -------------------
+    res, rec["gmres_s"], rec["gmres_k2_launches"] = prob.solve()
     rec["gmres_iters"] = int(res.num_iter)
     rec["gmres_ms_per_iter"] = 1e3 * rec["gmres_s"] / max(res.num_iter, 1)
     rec["gmres_rel_res"] = res.residuals[-1]
     rec["gmres_residuals"] = res.residuals
     rec["gmres_converged"] = bool(res.converged)
-    rec["gmres_k2_launches"] = K2.launches - launches
     log(f"  GMRES: {res.num_iter} iters, rel res {res.residuals[-1]:.2e}, "
         f"{rec['gmres_s']:.2f} s")
     rec["device"] = torch.cuda.get_device_name(dev) if on_card else str(dev)

@@ -39,7 +39,11 @@ from butterfly_tpu_torch.ops.butterfly import (
     random_butterfly,
 )
 from butterfly_tpu_torch.ops.fused_butterfly import K1, FusedButterflyPlan
-from butterfly_tpu_torch.parallel.launch import A2A, run_ranks
+from butterfly_tpu_torch.parallel.launch import (
+    A2A,
+    run_ranks,
+    stop_rank_servers,
+)
 from butterfly_tpu_torch.parallel.pipeline import (
     PipelinedButterfly,
     make_stage_mesh,
@@ -240,8 +244,11 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
-    rec = run(ranks=args.ranks, stages=args.stages, micro=args.micro,
-              r=args.r, iters=args.iters)
+    try:
+        rec = run(ranks=args.ranks, stages=args.stages, micro=args.micro,
+                  r=args.r, iters=args.iters)
+    finally:
+        stop_rank_servers()
     print(json.dumps(rec))
     return 0
 

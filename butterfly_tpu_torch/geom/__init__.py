@@ -1,8 +1,9 @@
 """Geometry: boxes, circles, point helpers, ellipses and Poisson-disk
 sampling (the Helmholtz slices), triangle meshes with the LBO's FEM
 discretization (the LBO slice), ray-traced visibility (the radiosity
-slice). Port counterparts of the same modules of `butterfly_tpu/geom/`,
-copied; the native mesh kit is not ported."""
+slice), and the native C++ mesh kit (`geom/native.py`, built from
+`csrc/meshkit.cpp` at first use). Port counterparts of the same modules of
+`butterfly_tpu/geom/`, copied."""
 
 from butterfly_tpu_torch.geom.bbox import Bbox
 from butterfly_tpu_torch.geom.circle import Circle, circles_are_separated

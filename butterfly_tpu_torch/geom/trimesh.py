@@ -9,10 +9,12 @@ off-diagonal), assembled vectorized into scipy CSR instead of per-vertex C
 loops. Also the Fiedler vector (bfTrimeshGetFiedler, src/trimesh.c:1300-1367)
 used by the spectral-bisection tree.
 
-Port counterpart of `butterfly_tpu/geom/trimesh.py`, copied with its NumPy
-paths only: the native C++ mesh kit (`geom/native.py`, `native/meshkit.cpp`)
-is not ported, and the vectorized NumPy `lbo_fem` here is the oracle the
-JAX package tests its native path against.
+Port counterpart of `butterfly_tpu/geom/trimesh.py`. As there, OBJ
+loading, boundary edges and the FEM assembly run in the native C++ mesh
+kit (`geom/native.py`, `csrc/meshkit.cpp`) unless called with
+`use_native=False`, which runs the vectorized NumPy code below, the oracle
+the kit is tested against. Unlike the JAX package, which quietly takes
+NumPy when its kit is missing, a kit that does not build or load raises.
 """
 
 from __future__ import annotations
@@ -42,9 +44,15 @@ class Trimesh:
     # -- I/O -------------------------------------------------------------
 
     @classmethod
-    def from_obj(cls, path: str) -> "Trimesh":
+    def from_obj(cls, path: str, use_native: bool = True) -> "Trimesh":
         """OBJ reader: v and f records, fan-triangulated
-        (reference: bfTrimeshNewFromObjFile)."""
+        (reference: bfTrimeshNewFromObjFile). The native C++ parser
+        (`csrc/meshkit.cpp`) unless `use_native=False`, which runs the
+        Python one."""
+        if use_native:
+            from butterfly_tpu_torch.geom.native import load_obj_native
+
+            return cls(*load_obj_native(path))
         verts, faces = [], []
         with open(path) as f:
             for line in f:
@@ -84,9 +92,14 @@ class Trimesh:
         e.sort(axis=1)
         return np.unique(e, axis=0)
 
-    def boundary_edges(self) -> np.ndarray:
+    def boundary_edges(self, use_native: bool = True) -> np.ndarray:
         """Edges incident to exactly one face (reference: boundary detection
-        in src/trimesh.c)."""
+        in src/trimesh.c), sorted. Native C++ half-edge counting unless
+        `use_native=False`."""
+        if use_native:
+            from butterfly_tpu_torch.geom.native import boundary_edges_native
+
+            return boundary_edges_native(self.faces)
         e = np.concatenate(
             [self.faces[:, [0, 1]], self.faces[:, [1, 2]], self.faces[:, [2, 0]]]
         )
@@ -255,7 +268,8 @@ class Trimesh:
 
     # -- FEM -------------------------------------------------------------
 
-    def lbo_fem(self) -> tuple[sp.csr_matrix, sp.csr_matrix]:
+    def lbo_fem(self, use_native: bool = True
+                ) -> tuple[sp.csr_matrix, sp.csr_matrix]:
         """P1 FEM stiffness L and consistent mass M of the Laplace-Beltrami
         operator (reference: bfTrimeshGetLboFemDiscretization,
         src/trimesh.c:1470-1610). Vectorized over faces:
@@ -263,8 +277,19 @@ class Trimesh:
         local stiffness entries are A * grad(phi_a) . grad(phi_b) — the
         classical cotan weights — and the local mass is A/6 on the diagonal,
         A/12 off.
+
+        The native C++ element assembly (`csrc/meshkit.cpp`) unless
+        `use_native=False`, which runs the vectorized NumPy path below, the
+        oracle the native path is tested against (they agree to 1e-14).
         """
         nv = self.num_verts
+        if use_native:
+            from butterfly_tpu_torch.geom.native import lbo_fem_native
+
+            nrows, ncols, nLv, nMv = lbo_fem_native(self.verts, self.faces)
+            L = sp.coo_matrix((nLv, (nrows, ncols)), shape=(nv, nv)).tocsr()
+            M = sp.coo_matrix((nMv, (nrows, ncols)), shape=(nv, nv)).tocsr()
+            return L, M
         f = self.faces
         p = self.verts[f]  # (nf, 3, 3)
         # edge vectors opposite each vertex: e_a = x_c - x_b

@@ -12,11 +12,16 @@ bfSolveGMRES, src/linalg.c:47-317):
                         it in one `lax.while_loop`; here a Python loop over
                         cycles reads the residual to the host once a cycle.
 - `solve_gmres_plan`    the Krylov basis on the device, the Givens
-                        recurrence on the host in float64; one Hessenberg
-                        column comes to the host per iteration. The operator
-                        may be any Python callable on device tensors, e.g. a
+                        recurrence on the host in float64 (complex128 for a
+                        complex system); one Hessenberg column comes to the
+                        host per iteration. The operator may be any Python
+                        callable on device tensors, e.g. a
                         `PartitionPlan.apply`: this is the large-N Helmholtz
-                        BIE solve (`examples/helm2_scale.py`).
+                        BIE solve (`examples/helm2_scale.py`). The JAX
+                        drivers are real-only (its TPU backend has no
+                        complex); this one takes a complex right-hand side
+                        and runs a complex basis, which needs about half the
+                        iterations of the interleaved real embedding.
 
 Every product with the basis runs in IEEE float32 (no TF32, see
 `ops/butterfly.py::_f32_precision`): a TF32 basis cannot reach the 3e-7
@@ -204,13 +209,14 @@ def solve_gmres(
     return GmresResult(x, total, residuals or [0.0], bool(np.all(converged)))
 
 
-def _on_device(b, device) -> torch.Tensor:
-    """`b` as a real tensor: a tensor keeps its device, numpy goes to
-    `device` (default: the card)."""
+def _on_device(b, device, complex_ok: bool = False) -> torch.Tensor:
+    """`b` as a tensor: a tensor keeps its device, numpy goes to `device`
+    (default: the card). Complex only where `complex_ok`."""
     if not isinstance(b, torch.Tensor):
         b = torch.as_tensor(np.asarray(b)).to(resolve_device(device))
-    check(not b.is_complex(), "real dtypes only: run a complex system "
-          "through its 2x2 real embedding", InvalidArgumentsError)
+    check(complex_ok or not b.is_complex(), "real dtypes only: run a "
+          "complex system through `solve_gmres_plan` or its 2x2 real "
+          "embedding", InvalidArgumentsError)
     return b
 
 
@@ -236,8 +242,10 @@ def solve_gmres_device(
     recurrence and the back substitution stay on b's device; the host reads
     one residual per restart cycle.
 
-    Real dtypes only (run Helmholtz through the 2x2 real-embedded stacked
-    system, e.g. `StagePlan.apply_stacked`). matvec/M: (n, k) -> (n, k)
+    Real dtypes only: nothing on the card path calls it with a complex
+    system (`solve_gmres_plan` takes one; Helmholtz can also run through
+    the 2x2 real-embedded stacked system, `StagePlan.apply_stacked`).
+    matvec/M: (n, k) -> (n, k)
     callables on device tensors, or matrices. Every cycle runs all
     `restart` steps. Returns (x, total_iters, rel_res): x a tensor on b's
     device, total_iters = cycles * restart, rel_res the largest column's
@@ -328,28 +336,34 @@ def solve_gmres_plan(
     """Restarted GMRES DRIVEN FROM PYTHON with the vectors on the device:
     the Krylov basis (CGS2), and the solution update stay on b's device;
     the host receives one Hessenberg column per iteration and runs the
-    Givens recurrence in float64.
+    Givens recurrence in float64 (complex128).
 
     `apply_fn` maps an (n,) device tensor to an (n,) or (n, 1) one: any
     Python-level callable, e.g. the BIE system around
     `PartitionPlan.apply`. Solve wall time is then about iterations times
     the apply.
 
-    Real dtypes only: run complex systems through the interleaved real
-    embedding. A float32 basis floors the relative residual around
-    1e-6..1e-7; a `tol` below that runs to max_iter and reports the floor.
-    `converged` is the true final residual under 10 * tol.
+    `b` may be real or complex (complex64 or complex128). A complex `b`
+    runs a complex Krylov basis on the device (CGS2 with `V.conj() @ w`)
+    and complex Givens rotations on the host in complex128 (real cosine,
+    complex sine); `apply_fn` then maps complex tensors to complex ones.
+    A float32 basis floors the relative residual around 1e-6..1e-7; a
+    `tol` below that runs to max_iter and reports the floor. `converged` is
+    the true final residual under 10 * tol.
     """
-    b = _on_device(b, device)
+    b = _on_device(b, device, complex_ok=True)
     check(b.ndim == 1, "solve_gmres_plan is single-RHS ((n,) vector)",
           InvalidArgumentsError)
     n = b.shape[0]
     m = int(restart)
+    cplx = b.is_complex()
+    hdt, tdt = ((np.complex128, torch.complex128) if cplx
+                else (np.float64, torch.float64))
 
     x = torch.zeros_like(b)
     bnorm = float(torch.linalg.vector_norm(b))
     if bnorm == 0:
-        return GmresResult(np.zeros(n), 0, [0.0], True)
+        return GmresResult(np.zeros(n, hdt), 0, [0.0], True)
 
     def resid(x):
         return b - apply_fn(x).reshape(n)
@@ -367,40 +381,53 @@ def solve_gmres_plan(
                 break
             V = b.new_zeros((m + 1, n))
             V[0] = r / (rnorm if rnorm > 0 else 1.0)
-            # host-side f64 Givens recurrence state
-            Hr = np.zeros((m + 1, m))
+            # host-side Givens recurrence state, float64 or complex128
+            Hr = np.zeros((m + 1, m), hdt)
             cs = np.zeros(m)
-            sn = np.zeros(m)
-            g = np.zeros(m + 1)
+            sn = np.zeros(m, hdt)
+            g = np.zeros(m + 1, hdt)
             g[0] = rnorm
             j_used = 0
             for j in range(m):
                 if total >= max_iter:
                     break
                 w = apply_fn(V[j]).reshape(n)
-                # CGS2 against V[0..j]
+                # CGS2 against V[0..j] (conj() is free on a real basis)
                 Vj = V[: j + 1]
-                h1 = Vj @ w
+                h1 = Vj.conj() @ w
                 w = w - Vj.T @ h1
-                h2 = Vj @ w
+                h2 = Vj.conj() @ w
                 w = w - Vj.T @ h2
                 beta = torch.linalg.vector_norm(w)
                 V[j + 1] = w / torch.where(beta > 0, beta,
                                            torch.ones_like(beta))
                 # the iteration's one fetch: h[0..j] and the new norm
-                hcol = np.zeros(m + 1)
-                hcol[: j + 2] = torch.cat([h1 + h2, beta[None]]).to(
-                    "cpu", torch.float64).numpy()
+                hcol = np.zeros(m + 1, hdt)
+                hcol[: j + 2] = torch.cat(
+                    [h1 + h2, beta[None].to(h1.dtype)]).to("cpu", tdt).numpy()
                 for i in range(j):
                     t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
-                    hcol[i + 1] = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                    hcol[i + 1] = (-np.conj(sn[i]) * hcol[i]
+                                   + cs[i] * hcol[i + 1])
                     hcol[i] = t
                 a, bb = hcol[j], hcol[j + 1]
-                d = np.hypot(a, bb)
-                cs[j], sn[j] = (1.0, 0.0) if d == 0 else (a / d, bb / d)
+                if cplx:
+                    # [c s; -conj(s) c] with c real takes (a, bb) to
+                    # (a/|a| d, 0), d = ||(a, bb)||
+                    d = np.hypot(abs(a), abs(bb))
+                    if d == 0:
+                        cs[j], sn[j] = 1.0, 0.0
+                    elif a == 0:
+                        cs[j], sn[j] = 0.0, np.conj(bb) / abs(bb)
+                    else:
+                        cs[j] = abs(a) / d
+                        sn[j] = a / abs(a) * np.conj(bb) / d
+                else:
+                    d = np.hypot(a, bb)
+                    cs[j], sn[j] = (1.0, 0.0) if d == 0 else (a / d, bb / d)
                 hcol[j] = cs[j] * a + sn[j] * bb
                 hcol[j + 1] = 0.0
-                g[j + 1] = -sn[j] * g[j]
+                g[j + 1] = -np.conj(sn[j]) * g[j]
                 g[j] = cs[j] * g[j]
                 Hr[:, j] = hcol
                 total += 1
@@ -411,7 +438,7 @@ def solve_gmres_plan(
                     converged = True
                     break
             if j_used:
-                y = np.zeros(j_used)
+                y = np.zeros(j_used, hdt)
                 for i in range(j_used - 1, -1, -1):
                     y[i] = (g[i] - Hr[i, i + 1:j_used] @ y[i + 1:]) / (
                         Hr[i, i] if Hr[i, i] != 0 else 1.0)

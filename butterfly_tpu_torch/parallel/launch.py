@@ -12,7 +12,10 @@ from multiprocessing's forkserver: a fresh, single-threaded interpreter
 that has imported torch and the port once and never touches CUDA, so a
 rank starts in milliseconds, where a spawned one re-imports torch (~4 s of
 CPU each) and a rank forked from the caller would inherit its threads and
-its CUDA context.
+its CUDA context. The forkserver (and multiprocessing's resource tracker
+beside it) stays up for the next `run_ranks` and would end only some time
+after the caller has exited: a program that ran ranks calls
+`stop_rank_servers` before it exits, so it leaves no process behind.
 
 Backends are named by the caller; nothing switches between them.
   * gloo runs the collectives on CPU tensors and stages CUDA tensors
@@ -51,7 +54,8 @@ from butterfly_tpu_torch.utils.errors import (
     check,
 )
 
-__all__ = ["A2A", "RankTraceback", "run_programs", "run_ranks"]
+__all__ = ["A2A", "RankTraceback", "run_programs", "run_ranks",
+           "stop_rank_servers"]
 
 
 class RankTraceback(Exception):
@@ -143,6 +147,16 @@ def run_ranks(fn: Callable, world: int, *, device=None, backend: str,
             with open(os.path.join(workdir, f"result{rank}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
     return results
+
+
+def stop_rank_servers() -> None:
+    """Stop the forkserver that `run_ranks` starts ranks from, then the
+    resource tracker (the forkserver holds its pipe open), and wait for
+    both to exit. Each is started again by the next `run_ranks`."""
+    from multiprocessing import forkserver, resource_tracker
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
 
 
 def run_programs(rank: int, world: int, device: torch.device,

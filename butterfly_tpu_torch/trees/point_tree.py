@@ -1,11 +1,13 @@
 """Spatial 2^d-ary point trees: quadtree (d=2) and octree (d=3).
 
 Port counterpart of `butterfly_tpu/trees/point_tree.py`, copied so that the
-port imports nothing of the JAX package. It keeps the NumPy builder
-(`_build`) only: the JAX package first tries the native C++ treekit
-(`native/treekit.cpp`, `_try_native`), which is not ported. Both builders
-give the same tree, the same `perm` and the same node ranges
-(`tests/test_torch_helm2.py` checks it).
+port imports nothing of the JAX package. As there, `PointTree` builds
+through the native C++ treekit (`csrc/treekit.cpp` via `trees/native.py`,
+`_try_native`) unless called with `use_native=False`, which takes the NumPy
+builder (`_build`), the oracle. Both give the same tree: the same `perm`,
+node ranges, octants and boxes (`tests/test_torch_native.py`). Unlike the
+JAX package, which quietly takes NumPy when its kit is missing, a treekit
+that does not build or load raises.
 
 TPU-native redesign of the reference quadtree/octree
 (src/quadtree.c, src/quadtree_node.c:123-199, src/octree.c,
@@ -62,7 +64,8 @@ class PointTree(Tree):
     """
 
     def __init__(self, points: np.ndarray, leaf_size: int = 1,
-                 max_depth: int = 64, normals: np.ndarray | None = None):
+                 max_depth: int = 64, normals: np.ndarray | None = None,
+                 use_native: bool = True):
         points = np.asarray(points, dtype=np.float64)
         check(points.ndim == 2, "points must be (n, d)", InvalidArgumentsError)
         n, d = points.shape
@@ -76,6 +79,11 @@ class PointTree(Tree):
         self.normals = normals
         self.leaf_size = int(leaf_size)
 
+        if use_native:
+            root, perm = self._try_native(points, max_depth)
+            super().__init__(root, perm)
+            return
+
         # Root box is the bounding box rescaled to a cube
         # (reference: bfQuadtreeNodeInitRoot, src/quadtree_node.c:283-305).
         bbox = Bbox.of_points(points).rescale_to_cube()
@@ -83,6 +91,27 @@ class PointTree(Tree):
         root = PointTreeNode(None, 0, 0, n, bbox)
         self._build(root, perm, max_depth)
         super().__init__(root, perm)
+
+    def _try_native(self, points, max_depth):
+        """Build through the native C++ treekit (`csrc/treekit.cpp` via
+        `trees/native.py`); raises if it does not build or load."""
+        from butterfly_tpu_torch.trees.native import build_point_tree_native
+
+        perm, tab = build_point_tree_native(points, self.leaf_size, max_depth)
+        d = points.shape[1]
+        nodes: list[PointTreeNode] = []
+        for k in range(len(tab["i0"])):
+            bbox = Bbox(tab["lo"][k, :d].copy(), tab["hi"][k, :d].copy())
+            parent = nodes[tab["parent"][k]] if tab["parent"][k] >= 0 else None
+            node = PointTreeNode(
+                parent, int(tab["depth"][k]), int(tab["i0"][k]),
+                int(tab["i1"][k]), bbox,
+            )
+            node.index = int(tab["octant"][k]) if tab["octant"][k] >= 0 else 0
+            if parent is not None:
+                parent.children.append(node)
+            nodes.append(node)
+        return nodes[0], perm
 
     def _build(self, node: PointTreeNode, perm: np.ndarray, max_depth: int) -> None:
         """Recursive octant partition of perm[i0:i1]

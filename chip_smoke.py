@@ -9,7 +9,8 @@ each printing its numbers on lines of their own:
 
   1. card: name, and the `nvidia-smi` name and power limit;
   2. build: K1 (`csrc/k1_pass.cu`) and K2 (`csrc/k2_cell.cu`) built by
-     nvcc, both at once, with the compiler's report;
+     nvcc and the native tree and mesh kits (`csrc/treekit.cpp`,
+     `csrc/meshkit.cpp`) by g++, all at once, with the compiler's report;
   3. kernel vs plain: K1 against its plain PyTorch version on the card, on
      small shapes covering each of its three engines (FFMA, MMA, WGMMA) and
      each path in them: every dtype mode, no leaf, the leaf in a pass of
@@ -67,10 +68,13 @@ each printing its numbers on lines of their own:
      the float32 peak); then the twin's `measure`: its apply timings, the
      128-row oracle (held to 1e-6, and below the 7.987e-7 that float32
      windows read on the H100) and `solve_gmres_plan` on the second-kind
-     BIE (held to converge within the 18 iterations of float32 windows),
-     with iterations, seconds, ms per iteration and K2 launches over the
-     solve, beside the TPU record `HELM2_SCALE_r05.json`; every low-rank
-     class, factored in float64, held to the probe tolerance 3e-7;
+     BIE in a complex64 basis (held to converge within the 18 iterations
+     of float32 windows), with iterations, seconds, ms per iteration and
+     K2 launches over the solve, beside the TPU record
+     `HELM2_SCALE_r05.json`; then, not counted, the real basis on the
+     interleaved embedding and the complex basis once more, each with
+     the same figures; every low-rank class, factored in float64, held to
+     the probe tolerance 3e-7;
   8. the fast direct solver's device substitution (`DeviceSolver`) on the
      operator-first Toeplitz system at n=4096
      (`butterfly_tpu_torch/examples/fast_direct_solver.py`): host float64
@@ -99,7 +103,9 @@ each printing its numbers on lines of their own:
      beside the plain passes, the materialized operator's `D @ x` and the
      bound; then the card solve: the system's MVP held to 1e-6 against the
      dense float64 system in tree order, the density to 2e-5 against the
-     dense LU, `solve_gmres_plan` (tol 3e-7, no restarts) held to converge
+     dense LU, `solve_gmres_plan` in a complex64 basis (tol 3e-7, no
+     restarts; at most 70 iterations for helm2_bie, whose host GMRES takes
+     63, and 1.1 x the host's for the scattering system) held to converge
      (its true residual under 10 x tol or, where the plan's float32 error
      alone keeps the residual above that even at the dense-LU density,
      its Givens estimate under tol: the scattering system's floor, about
@@ -107,7 +113,10 @@ each printing its numbers on lines of their own:
      4.4e-7 in a CPU run) and
      the field to 1e-5 (helm2_bie) and 1e-4 (multiple_scattering) against
      the exact solution; its iterations beside host GMRES's and K2
-     launches over the solve;
+     launches over the solve; then, not counted, the real basis on the
+     interleaved embedding with its iterations, ms per iteration and K2
+     launches, and the system's deviation from complex-linearity
+     ||S(iz) - iS(z)|| / ||S(z)|| beside its MVP error;
  11. the rest of the fac -> device bridge: `distill_butterfly_device` of a
      1024 x 512 DCT matrix (NB=16, rank 64) on the card, held to 1e-5
      against dense in float64, and `distill_butterfly_batch` of a
@@ -133,15 +142,22 @@ each printing its numbers on lines of their own:
      against `pass_plain`, 512 rows of its scores to 1e-6 against the
      distilled factors in float64, recall of every format printed, K1
      timed beside its plain passes, the per-level einsum and the dense
-     `Q @ Phi.T` + `torch.topk`;
+     `Q @ Phi.T` + `torch.topk`; (d) on the host: the native treekit
+     against the NumPy builder (the 65,536-point quadtree of the scale
+     twin's ellipse, leaf 64; trees equal) and the native meshkit's
+     `lbo_fem` against the NumPy assembly (icosphere(7); 1e-14), timed;
  13. radiosity (`butterfly_tpu_torch/geom/visibility.py`,
      `models/radiosity.py`, the `radiosity` twin; eager torch ops, no
      kernel, as the JAX package's jitted jnp): (a) 16,384 random triangles
      and 2^20 rays (`default_rng(13)`), the octree-culled visibility
-     (leaf 512) equal to brute force ray for ray on the card, the card
-     against the CPU on 4096 rays (each disagreement printed with its
-     float64 margin, failing above 1e-5), both paths timed and the culled
-     path's host share read by `torch.profiler` on a slice; (b) the
+     (leaf 512) equal to brute force ray for ray on the card, with one
+     host read a ray chunk, the card against the CPU on 4096 rays (each
+     disagreement printed with its float64 margin, failing above 1e-5),
+     both paths timed, the ray-triangle pairs the culled path's tiles
+     test beside those its candidates need and brute force's, and the
+     culled path's host share read from a `torch.profiler` trace of a
+     slice against its median unprofiled time (held to at most a half);
+     (b) the
      occlusion-aware assembly of icosphere(3) equal to the plain one
      (1,637,120 nonzeros, no pair occluded); (c) the twin on icosphere(5),
      F dense in float64 on the card (3.36 GB): 4096 entries against the
@@ -378,13 +394,14 @@ def bie_phase(dev, timer):
     from butterfly_tpu_torch.ops.fused_butterfly import K1
 
     cases, launches = {}, 0
-    for label, setup, solve, field_tol in (
+    for label, setup, solve, rhs_of, field_tol, max_iters in (
             ("helm2_bie n=2048 k=40",
              lambda: helm2_bie.setup(2048, 40.0, device=dev),
-             helm2_bie.solve, 1e-5),
+             helm2_bie.solve, lambda p: p.rhs, 1e-5, lambda rec: 70),
             ("multiple_scattering k=25 3x512",
              lambda: multiple_scattering.setup(25.0, 3, 512, device=dev),
-             multiple_scattering.solve, 1e-4)):
+             multiple_scattering.solve, lambda p: p.hs.rhs, 1e-4,
+             lambda rec: 1.1 * rec["host_gmres_iters"])):
         prob = setup()
         plan = prob.card.plan
         print(f"[10 bie] {label}: plan {prob.rec['plan_s']:.2f} s, windows "
@@ -399,7 +416,8 @@ def bie_phase(dev, timer):
         require(K2.launches > 0 and K1.launches == 0,
                 f"{label}: the solve launched K2 {K2.launches} and K1 "
                 f"{K1.launches} times")
-        launches += K2.launches
+        case_launches = K2.launches
+        launches += case_launches
         require(rec["mvp_rel"] <= 1e-6,
                 f"{label}: card MVP vs the dense system {rec['mvp_rel']:.3e}")
         # converged: the true residual under 10 x tol or, where the card
@@ -432,19 +450,54 @@ def bie_phase(dev, timer):
                 f"{rec['gmres_iters']} iterations")
         require(rec["field_rel_err"] <= field_tol,
                 f"{label}: field rel err {rec['field_rel_err']:.3e}")
+        # the complex basis: about the host's complex iterations (helm2_bie
+        # took 113 on the interleaved real embedding, the host 63)
+        require(rec["gmres_iters"] <= max_iters(rec),
+                f"{label}: complex GMRES took {rec['gmres_iters']} "
+                f"iterations, more than {max_iters(rec):.1f} (host "
+                f"{rec['host_gmres_iters']})")
+        # beside it, not counted: the real basis on the interleaved
+        # embedding, the same system and settings
+        _, res_r, secs_r, launches_r = prob.card.solve(
+            rhs_of(prob), basis="real")
+        rec.update(
+            real_gmres_iters=int(res_r.num_iter), real_gmres_s=secs_r,
+            real_ms_per_iter=1e3 * secs_r / max(res_r.num_iter, 1),
+            real_gmres_rel_res=res_r.residuals[-1],
+            real_gmres_givens_res=res_r.residuals[-2],
+            real_k2_launches=launches_r,
+            real_gmres_converged=bool(res_r.converged))
+        # the plan applies the real embedding: its deviation from
+        # complex-linearity, ||S(iz) - iS(z)|| / ||S(z)||, beside the MVP
+        # error (the CPU tests hold it within twice that)
+        gz = torch.Generator(device=dev).manual_seed(7)
+        z = torch.complex(*(torch.randn(len(prob.card.perm), generator=gz,
+                                        device=dev) for _ in range(2)))
+        Sz = prob.card.sys_apply_complex(z)
+        rec["complex_linearity"] = float(
+            torch.linalg.vector_norm(prob.card.sys_apply_complex(1j * z)
+                                     - 1j * Sz)
+            / torch.linalg.vector_norm(Sz))
         print(f"[10 bie] {label}: GMRES on the card {rec['gmres_iters']} "
-              "iterations (tol 3e-7, no restarts, interleaved real; true "
+              "iterations (tol 3e-7, no restarts, complex64 basis; true "
               f"residual {rec['gmres_rel_res']:.3e}, float32 floor "
               f"{rec['f32_residual_floor']:.3e}: plan "
               f"{rec['floor_from_plan']:.3e}, corrector "
-              f"{rec['floor_from_corrector']:.3e}), on the host "
+              f"{rec['floor_from_corrector']:.3e}), {rec['ms_per_iter']:.3f} "
+              f"ms an iteration, K2 {rec['k2_launches']} launches; on the "
+              f"interleaved real embedding {rec['real_gmres_iters']} "
+              f"iterations (true residual {rec['real_gmres_rel_res']:.3e}), "
+              f"{rec['real_ms_per_iter']:.3f} ms an iteration, K2 "
+              f"{rec['real_k2_launches']} launches; complex-linearity "
+              f"{rec['complex_linearity']:.3e} (MVP {rec['mvp_rel']:.3e}); "
+              "on the host "
               f"{rec['host_gmres_iters']} (tol 1e-10, complex float64); "
               f"K2 r=1 {k2[1]['ms']:.4f} ms against a bound of "
               f"{k2[1]['bound_ms']:.4f} ms ({k2[1]['bound_by']}), plain "
               f"{k2[1]['plain_ms']:.4f} ms, D @ x {k2[1]['library_ms']:.4f} "
               "ms", flush=True)
         print(f"[10 bie] {label} row: " + json.dumps(rec), flush=True)
-        cases[label] = dict(k2, row=rec, launches=K2.launches)
+        cases[label] = dict(k2, row=rec, launches=case_launches)
         del prob, plan
         torch.cuda.empty_cache()
     return cases, launches
@@ -725,7 +778,52 @@ def lbo_phase(dev, timer, band=(5, 256), table=(5, 1024)):
         launches=launches)
     print("[12 lbo] K1 on the LBO table's deep_fused: " + json.dumps(case),
           flush=True)
+    rec["native_kits"] = native_kits()
     return case, launches, rec
+
+
+def native_kits(n_tree: int = 65536, subdiv: int = 7, reps: int = 3):
+    """Phase 12 (d), on the host: the native treekit against the NumPy
+    builder (the scale twin's ellipse at `n_tree` points, quadtree leaf
+    64) and the native meshkit's `lbo_fem` against the NumPy assembly
+    (icosphere(`subdiv`)), each built `reps` times in turns (the first
+    call builds the library with g++); the trees held equal, the FEM
+    matrices to 1e-14."""
+    from butterfly_tpu_torch.geom import Ellipse, icosphere
+    from butterfly_tpu_torch.trees import PointTree
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    X = Ellipse(1.0, 0.7, (0.0, 0.0), 0.3).sample_linspaced(n_tree)[0]
+    mesh = icosphere(subdiv)
+    secs = {k: [] for k in ("treekit", "tree_numpy", "meshkit",
+                            "lbo_numpy")}
+    for _ in range(reps):
+        tn, t = timed(lambda: PointTree(X, leaf_size=64))
+        secs["treekit"].append(t)
+        tp, t = timed(lambda: PointTree(X, leaf_size=64, use_native=False))
+        secs["tree_numpy"].append(t)
+        (Ln, Mn), t = timed(lambda: mesh.lbo_fem())
+        secs["meshkit"].append(t)
+        (Lp, Mp), t = timed(lambda: mesh.lbo_fem(use_native=False))
+        secs["lbo_numpy"].append(t)
+    same = (np.array_equal(tn.perm, tp.perm)
+            and [(v.depth, v.i0, v.i1) for v in tn.post_order()]
+            == [(v.depth, v.i0, v.i1) for v in tp.post_order()])
+    require(same, "treekit and NumPy trees differ")
+    lm = max(float(abs(Ln - Lp).max()), float(abs(Mn - Mp).max()))
+    require(lm <= 1e-14, f"meshkit lbo_fem vs NumPy {lm:.3e}")
+    out = dict(tree_points=n_tree, tree_nodes=sum(1 for _ in
+                                                  tn.post_order()),
+               mesh_verts=mesh.num_verts, lbo_max_abs_diff=lm,
+               **{f"{k}_s": float(np.median(v)) for k, v in secs.items()},
+               **{f"{k}_s_all": v for k, v in secs.items()})
+    print("[12 lbo] (d) native kits on the host: " + json.dumps(out),
+          flush=True)
+    return out
 
 
 def _vf_reference(cent, norm, area, i, j):
@@ -762,16 +860,61 @@ def _ray_margin(o, d, tris, skip, t_lo=1e-6, t_hi=1.0 - 1e-6):
     return float(m[keep].min())
 
 
+def culled_pairs(cv, orig, dirs, chunks, ray_chunk: int = 16384) -> dict:
+    """Ray-triangle pairs of the culled path over the first `chunks` ray
+    chunks: as its tiles test them (candidate and triangle counts padded
+    to powers of two), as the candidates need them, and brute force's."""
+    from butterfly_tpu_torch.geom.visibility import _pow2_at_least
+
+    tp = _pow2_at_least(cv.group_size, 32)
+    padded = exact = brute = 0
+    for b0 in range(0, min(len(orig), chunks * ray_chunk), ray_chunk):
+        o = torch.as_tensor(orig[b0:b0 + ray_chunk], dtype=torch.float32,
+                            device=cv.device)
+        d = torch.as_tensor(dirs[b0:b0 + ray_chunk], dtype=torch.float32,
+                            device=cv.device)
+        counts = cv._candidate_mask(o, d, 1e-6, 1.0 - 1e-6).sum(0).cpu(
+            ).numpy()
+        live = counts > 0
+        padded += int((_pow2_at_least(counts[live], 32) * tp[live]).sum())
+        exact += int((counts * cv.group_size).sum())
+        brute += len(o) * cv.num_tris
+    return dict(padded=padded, exact=exact, brute=brute,
+                padded_over_exact=padded / exact,
+                brute_over_padded=brute / padded)
+
+
+def _device_busy(trace: Path) -> tuple[float, float]:
+    """(seconds the device was busy, seconds of the whole window) of a
+    Chrome trace: the union of its kernel, copy and set intervals, and the
+    span of all its complete events."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    if not events:
+        return 0.0, 0.0
+    window = (max(e["ts"] + e.get("dur", 0) for e in events)
+              - min(e["ts"] for e in events))
+    busy, end = 0.0, -float("inf")
+    for t0, t1 in sorted((e["ts"], e["ts"] + e.get("dur", 0))
+                         for e in events if e.get("cat") in (
+                             "kernel", "gpu_memcpy", "gpu_memset")):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return 1e-6 * busy, 1e-6 * window
+
+
 def radiosity_phase(dev, smi, vis=(16384, 1 << 20), occ_subdiv=3,
                     subdiv=5):
     """Phase 13: radiosity (no kernel: eager torch ops, as the JAX
     package's jitted jnp). (a) visibility on 16,384 random triangles of
     size 0.08 in the unit cube and 2^20 rays (`default_rng(13)`): the
     culled path (`CulledVisibility`, leaf 512) against brute-force
-    `ray_hits_any`, both on the card, equal ray for ray; the card against
-    the CPU on 4096 rays, every disagreement printed with its float64
-    margin (failing above 1e-5); both paths timed, and the culled path's
-    host share read from a profiled slice; (b) `view_factor_matrix` of
+    `ray_hits_any`, both on the card, equal ray for ray, one host read a
+    ray chunk; the card against the CPU on 4096 rays, every disagreement
+    printed with its float64 margin (failing above 1e-5); both paths
+    timed, and the culled path's host share read from the trace of a
+    profiled slice (at most a half); (b) `view_factor_matrix` of
     icosphere(3) with occlusion equal to the assembly without (1,637,120
     nonzeros, no pair occluded); (c) the radiosity twin on icosphere(5)
     (20,480 faces, F dense float64 on the card): 4096 sampled entries
@@ -812,8 +955,14 @@ def radiosity_phase(dev, smi, vis=(16384, 1 << 20), occ_subdiv=3,
                                                 skip_idx=skip, device=dev))
     cv, build_s = clock(lambda: CulledVisibility(tris, leaf_size=512,
                                                  device=dev))
+    syncs0 = cv.syncs
     culled, culled_s = clock(lambda: cv.ray_hits_any(orig, dirs,
                                                      skip_idx=skip))
+    chunks = -(-nR // 16384)
+    syncs_per_chunk = (cv.syncs - syncs0) / chunks
+    require(syncs_per_chunk == 1, f"culled path: {cv.syncs - syncs0} host "
+            f"reads over {chunks} ray chunks")
+    pairs = culled_pairs(cv, orig, dirs, chunks)
     bad = np.nonzero(culled != brute)[0]
     for i in bad[:20]:
         print(f"{tag} (a) culled != brute at ray {i}: margin "
@@ -835,32 +984,55 @@ def radiosity_phase(dev, smi, vis=(16384, 1 << 20), occ_subdiv=3,
     require(all(m <= 1e-5 for m in margins),
             f"card and CPU disagree on a ray {max(margins, default=0):.3e} from its "
             "boundary")
-    # the culled path's host share, on a slice of 4 ray chunks
+    # the culled path's host share, on a slice of 4 ray chunks: 1 - the
+    # device's busy time (the union of the trace's kernel and copy
+    # intervals) over the slice's unprofiled wall time (median of 5). The profiler slows
+    # the host's launches, not the kernels, so the share over the profiled
+    # window, printed beside it, reads the host higher than it is. (The
+    # sum of `key_averages()`' device times, also printed, counts each
+    # kernel twice: in its own row and in its op's.)
     nP = 4 * 16384
-    _, slice_s = clock(lambda: cv.ray_hits_any(orig[:nP], dirs[:nP],
-                                               skip_idx=skip[:nP]))
-    with device_trace(str(ROOT / "build" / "trace_phase13")) as prof:
+    slice_all = [clock(lambda: cv.ray_hits_any(orig[:nP], dirs[:nP],
+                                               skip_idx=skip[:nP]))[1]
+                 for _ in range(5)]
+    slice_s = float(np.median(slice_all))  # one host hiccup moves one run
+    trace_dir = ROOT / "build" / "trace_phase13"
+    with device_trace(str(trace_dir)) as prof:
         cv.ray_hits_any(orig[:nP], dirs[:nP], skip_idx=skip[:nP])
         torch.cuda.synchronize(dev)
     ops = prof.key_averages()
-    busy_s = 1e-6 * sum(getattr(e, "self_device_time_total", 0) for e in ops)
+    busy_s, window_s = _device_busy(trace_dir / "trace.json")
+    avg_sum_s = 1e-6 * sum(getattr(e, "self_device_time_total", 0)
+                           for e in ops)
     # where the host's time goes: torch ops by their own CPU time (the
-    # rest of the slice is NumPy and Python: the slab test, selections)
+    # rest of the slice is NumPy and Python: the bucket tables)
     top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]
     host_ops = [(e.key, 1e-3 * e.self_cpu_time_total, e.count) for e in top]
     torch_cpu_s = 1e-6 * sum(e.self_cpu_time_total for e in ops)
     vis = dict(
         triangles=nT, rays=nR, hit_share=float(brute.mean()),
         groups=cv.num_groups, group_pad=cv.group_pad,
+        group_sizes=[int(cv.group_size.min()), int(cv.group_size.max())],
         brute_s=brute_s, culled_build_s=build_s, culled_s=culled_s,
+        culled_ray_chunks=chunks, culled_host_syncs_per_chunk=syncs_per_chunk,
+        culled_pairs=pairs,
         cpu_rays=nS, cpu_s=cpu_s, card_cpu_disagreements=int(flips.size),
         card_cpu_margins=margins, slice_rays=nP, slice_s=slice_s,
+        slice_s_all=slice_all,
+        slice_profiled_window_s=window_s,
         slice_device_busy_s=busy_s if busy_s > 0 else "not measured",
         slice_host_share=(1 - busy_s / slice_s) if busy_s > 0
         else "not measured",
+        slice_host_share_profiled=(1 - busy_s / window_s) if busy_s > 0
+        else "not measured",
+        slice_key_averages_device_sum_s=avg_sum_s,
         slice_profiled_torch_cpu_s=torch_cpu_s,
         slice_top_torch_ops_cpu_ms_count=host_ops)
     print(f"{tag} (a) visibility: " + json.dumps(vis), flush=True)
+    # the culled path runs on the device: the host holds at most half of
+    # its time (where the profiler reads the device)
+    require(busy_s == 0 or 1 - busy_s / slice_s <= 0.5,
+            f"culled path host share {1 - busy_s / slice_s:.3f}")
     rec["visibility"] = vis
     del cv
     # ---- (b) occlusion on a convex mesh ---------------------------------
@@ -944,7 +1116,7 @@ def main() -> int:
     from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
     from butterfly_tpu_torch.ops.linalg import solve_gmres_plan
     from butterfly_tpu_torch.trees import Quadtree, uniform_tree
-    from butterfly_tpu_torch.utils.nvcc import build_kernel
+    from butterfly_tpu_torch.utils.nvcc import build_host_library, build_kernel
     from butterfly_tpu_torch.utils.timer import device_time
 
     # IEEE float32 everywhere, including the plain and library paths: TF32
@@ -967,14 +1139,21 @@ def main() -> int:
     print(f"[1 card] nvidia-smi name, power limit: {smi}", flush=True)
 
     # ---- 2. build -------------------------------------------------------
-    # one nvcc per source, started together
+    # one compiler per source, started together: nvcc for the kernels, g++
+    # for the native tree and mesh kits
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        libs = list(ex.map(build_kernel, ("k1_pass.cu", "k2_cell.cu")))
+    with ThreadPoolExecutor(4) as ex:
+        futs = ([ex.submit(build_kernel, f) for f in ("k1_pass.cu",
+                                                      "k2_cell.cu")]
+                + [ex.submit(build_host_library, f) for f in ("treekit.cpp",
+                                                              "meshkit.cpp")])
+        libs, kits = ([f.result() for f in futs[:2]],
+                      [f.result() for f in futs[2:]])
     K1.load()
     K2.load()
     build_s = time.perf_counter() - t0
-    print(f"[2 build] K1 and K2 built and loaded in {build_s:.2f} s",
+    print(f"[2 build] K1 and K2 built and loaded, the native kits built "
+          f"({', '.join(k.name for k in kits)}), in {build_s:.2f} s",
           flush=True)
     for lib in libs:
         entry = ""
@@ -1547,10 +1726,11 @@ def main() -> int:
         print(f"[7 helm2 scale] K2 r={r}: " + json.dumps(scale[r]),
               flush=True)
     # the same BIE solved through other applies of the same plan (not
-    # counted): the plain passes, the materialized operator in float32, and
-    # that operator in float64 with a float64 Krylov basis. Iterations
-    # that differ from the K2 solve's come from float32 rounding, not from
-    # the compressed operator.
+    # counted), on the interleaved real embedding: the plain passes, the
+    # materialized operator in float32, and that operator in float64 with a
+    # float64 Krylov basis. Iterations that differ from the real-basis K2
+    # solve's (below) come from float32 rounding, not from the compressed
+    # operator.
     b2 = prob.rhs()
     wp2 = prob.wp2
     D64 = D.double()
@@ -1595,8 +1775,36 @@ def main() -> int:
             f"GMRES launched K2 {row['gmres_k2_launches']} times in "
             f"{row['gmres_iters']} iterations")
     print("[7 helm2 scale] row: " + json.dumps(row), flush=True)
-    print("[7 helm2 scale] GMRES through K2: residuals " + " ".join(
-        f"{x:.2e}" for x in row["gmres_residuals"]), flush=True)
+    print("[7 helm2 scale] GMRES through K2 (complex64 basis): residuals "
+          + " ".join(f"{x:.2e}" for x in row["gmres_residuals"]), flush=True)
+    # beside it, not counted: the real basis on the interleaved embedding
+    res_r, secs_r, launches_r = prob.solve(basis="real")
+    require(res_r.converged, f"scale twin, real basis: {res_r.num_iter} "
+            f"iterations, rel res {res_r.residuals[-1]:.3e}")
+    real_S = dict(gmres_iters=int(res_r.num_iter), gmres_s=secs_r,
+                  gmres_ms_per_iter=1e3 * secs_r / max(res_r.num_iter, 1),
+                  gmres_rel_res=res_r.residuals[-1],
+                  gmres_k2_launches=launches_r)
+    row["real_basis"] = real_S
+    # the complex solve once more, after both bases have run once: the
+    # main path's solve is the process's first complex GMRES
+    res_c, secs_c, launches_c = prob.solve()
+    row["complex_basis_again"] = dict(
+        gmres_iters=int(res_c.num_iter), gmres_s=secs_c,
+        gmres_ms_per_iter=1e3 * secs_c / max(res_c.num_iter, 1),
+        gmres_k2_launches=launches_c)
+    print(f"[7 helm2 scale] GMRES through K2: complex64 basis "
+          f"{row['gmres_iters']} iterations, "
+          f"{row['gmres_ms_per_iter']:.3f} ms an iteration, K2 "
+          f"{row['gmres_k2_launches']} launches, true residual "
+          f"{row['gmres_rel_res']:.3e}; real basis on the interleaved "
+          f"embedding {real_S['gmres_iters']} iterations, "
+          f"{real_S['gmres_ms_per_iter']:.3f} ms an iteration, K2 "
+          f"{launches_r} launches, true residual "
+          f"{real_S['gmres_rel_res']:.3e}; the complex basis again "
+          f"{row['complex_basis_again']['gmres_ms_per_iter']:.3f} ms an "
+          "iteration; real residuals " + " ".join(
+              f"{x:.2e}" for x in res_r.residuals), flush=True)
     tpu = next(t for t in json.loads(
         (ROOT / "HELM2_SCALE_r05.json").read_text()) if t.get("n") == nS)
     print(f"[7 helm2 scale] windows {row['windows']}, plan "
@@ -1656,27 +1864,34 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 14. multi-device: gloo ranks sharing the one card ---------------
-    # A rank's failure is raised here (`run_ranks`) and ends the script.
+    # A rank's failure is raised here (`run_ranks`) and ends the script;
+    # either way the ranks' forkserver is stopped before the script exits.
     from butterfly_tpu_torch.entry import dryrun_multichip
     from butterfly_tpu_torch.examples import multidevice
+    from butterfly_tpu_torch.parallel.launch import stop_rank_servers
 
     print("[14 multi-device] gloo ranks time-share this one card and stage "
           "their exchanges through the host: not scaling numbers",
           flush=True)
-    md = multidevice.run(dev, ranks=4, stages=2, micro=4, r=256, iters=10)
-    launches_M = md["sharded"]["k1_launches"]
-    md["sharded"]["phase4_f32_flagship_ms"] = results["flagship f32"]["ms"]
-    print("[14 multi-device] (a) sharded flagship: "
-          + json.dumps(md["sharded"]), flush=True)
-    print("[14 multi-device] (b) pipelined flagship: "
-          + json.dumps(md["pipelined"]), flush=True)
-    t0 = time.perf_counter()
-    dry = dryrun_multichip(4, device=dev, backend="gloo")
-    dry = {k: v for k, v in dry.items() if not isinstance(v, (np.ndarray,
-                                                               list))}
-    dry["wall_s"] = time.perf_counter() - t0
-    print("[14 multi-device] (c) dryrun_multichip(4): " + json.dumps(dry),
-          flush=True)
+    try:
+        md = multidevice.run(dev, ranks=4, stages=2, micro=4, r=256,
+                             iters=10)
+        launches_M = md["sharded"]["k1_launches"]
+        md["sharded"]["phase4_f32_flagship_ms"] = results["flagship f32"][
+            "ms"]
+        print("[14 multi-device] (a) sharded flagship: "
+              + json.dumps(md["sharded"]), flush=True)
+        print("[14 multi-device] (b) pipelined flagship: "
+              + json.dumps(md["pipelined"]), flush=True)
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(4, device=dev, backend="gloo")
+        dry = {k: v for k, v in dry.items()
+               if not isinstance(v, (np.ndarray, list))}
+        dry["wall_s"] = time.perf_counter() - t0
+        print("[14 multi-device] (c) dryrun_multichip(4): "
+              + json.dumps(dry), flush=True)
+    finally:
+        stop_rank_servers()
     torch.cuda.empty_cache()
 
     # ---- the record -----------------------------------------------------

@@ -7,7 +7,10 @@ Each operator is built by the JAX package and carried across with
 (the JAX plan runs K2 in Pallas interpret mode, the port's `cells_plain`).
 The port's host system, built by its own modules, is held to the JAX
 script's, host GMRES to its iteration count, and the card path (plan +
-accumulate corrector + `solve_gmres_plan`) is run with `device="cpu"`.
+accumulate corrector + `solve_gmres_plan`) is run with `device="cpu"`:
+its complex basis against the JAX script's host complex GMRES, beside the
+real basis on the interleaved embedding, and the system's deviation from
+complex-linearity against its MVP error.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ from butterfly_tpu_torch.convert import linop_from_numpy
 from butterfly_tpu_torch.examples import helm2_bie, multiple_scattering
 from butterfly_tpu_torch.fac.partition import partition_apply_plan
 from butterfly_tpu_torch.ops.linalg import solve_gmres
+from butterfly_tpu_torch.utils.errors import InvalidArgumentsError
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -166,6 +170,58 @@ def test_card_path_on_cpu_multiple_scattering(scattering):
     assert rec["field_rel_err"] <= 1e-4
     assert max(rec["floor_from_plan"], rec["floor_from_corrector"]) < 3e-6
     assert rec["k2_launches"] == 0 and rec["gmres_s"] > 0
+
+
+def test_complex_card_gmres_against_jax_host_gmres(case):
+    """The card path's complex basis (on the CPU): converged with a true
+    residual < 10 x tol, at most 1.1x the JAX script's host complex GMRES
+    iterations (tol 1e-10), its density within 2e-5 of the host's; the
+    real basis on the interleaved embedding converges too, in more
+    iterations, to the same density."""
+    _, card, _, sys_j, perm, rhs = case
+    want = jax_gmres(sys_j, rhs[perm], tol=1e-10, max_iter=400)
+    sigma, res, secs, launches = card.solve(rhs)
+    assert want.converged and res.converged
+    assert res.residuals[-1] < 10 * helm2_bie.GMRES_TOL
+    assert res.x.dtype == np.complex64 and launches == 0 and secs > 0
+    assert res.num_iter <= 1.1 * want.num_iter
+    assert _rel(res.x, np.asarray(want.x)) <= 2e-5
+    want_sigma = np.empty_like(np.asarray(want.x))
+    want_sigma[perm] = np.asarray(want.x)
+    assert _rel(sigma, want_sigma) <= 2e-5
+    sigma_r, res_r, _, _ = card.solve(rhs, basis="real")
+    assert res_r.converged and res_r.num_iter > res.num_iter
+    assert _rel(sigma_r, want_sigma) <= 2e-5
+    with pytest.raises(InvalidArgumentsError):
+        card.solve(rhs, basis="quaternion")
+
+
+def test_card_system_is_complex_linear_to_its_mvp_error(case):
+    """||S(i z) - i S(z)|| / ||S(z)|| of the card system (the plan is real:
+    it applies the interleaved embedding) within twice the system's MVP
+    error against the JAX host system; the complex apply is a view of the
+    real one."""
+    _, card, _, sys_j, perm, _ = case
+    n = len(perm)
+    rng = np.random.default_rng(3)
+    z = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    zt = torch.from_numpy(z)
+    Sz = card.sys_apply_complex(zt)
+    dev = float(torch.linalg.vector_norm(card.sys_apply_complex(1j * zt)
+                                         - 1j * Sz)
+                / torch.linalg.vector_norm(Sz))
+    mvp = _rel(Sz.numpy().astype(np.complex128),
+               sys_j.matvec(z.astype(np.complex128)))
+    assert mvp < 1e-6 and dev <= 2 * mvp
+    real = card.sys_apply(torch.view_as_real(zt).reshape(-1))
+    assert torch.equal(torch.view_as_real(Sz).reshape(-1), real)
+    zo = np.empty_like(z)
+    zo[perm] = z
+    assert torch.equal(card.to_card_complex(zo), zt)
+    assert torch.equal(card.to_card(zo), torch.view_as_real(zt).reshape(-1))
+    np.testing.assert_array_equal(card.from_card(zt), zo)
+    np.testing.assert_array_equal(card.from_card(card.to_card(zo)), zo)
 
 
 _BIE_KEYS = {"n", "k", "mvp_rel", "gmres_iters", "gmres_s", "ms_per_iter",

@@ -13,6 +13,9 @@ each rank's send buffer — the counterpart of the JAX test's compiled-HLO
 volume check. Tolerances: 2e-6 relative (the JAX test's), gradients 1e-5.
 """
 
+import os
+from multiprocessing import forkserver, resource_tracker
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,11 @@ from butterfly_tpu.ops.butterfly import UniformButterfly as JaxButterfly
 from butterfly_tpu.parallel.shmap_butterfly import (
     ShardedButterfly as JaxSharded,
 )
-from butterfly_tpu_torch.parallel.launch import run_programs, run_ranks
+from butterfly_tpu_torch.parallel.launch import (
+    run_programs,
+    run_ranks,
+    stop_rank_servers,
+)
 from butterfly_tpu_torch.parallel.shmap_butterfly import (
     sharded_program,
     unpermute_rows,
@@ -127,3 +134,20 @@ def test_gradients_through_the_exchange_match_jax(case):
     for i, want in enumerate(g_w2):
         got = np.concatenate([g[1 + n1 + i] for g in grads], axis=3)
         assert _rel(got, want) < 1e-5
+
+
+def test_stop_rank_servers_leaves_no_process(case):
+    # `case` has run ranks, so their forkserver is up; once stopped, it and
+    # the resource tracker are gone, and the next ranks start them again
+    pids = [forkserver._forkserver._forkserver_pid,
+            resource_tracker._resource_tracker._pid]
+    assert pids[0] is not None
+    stop_rank_servers()
+    for pid in filter(None, pids):
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+    assert run_ranks(run_programs, 2, device="cpu", backend="gloo",
+                     args=([],)) == [[], []]
+    assert forkserver._forkserver._forkserver_pid not in (None, pids[0])
+    stop_rank_servers()
+    assert forkserver._forkserver._forkserver_pid is None

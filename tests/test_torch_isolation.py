@@ -43,6 +43,7 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.geom.bbox",
     "butterfly_tpu_torch.geom.circle",
     "butterfly_tpu_torch.geom.ellipse",
+    "butterfly_tpu_torch.geom.native",
     "butterfly_tpu_torch.geom.points",
     "butterfly_tpu_torch.geom.poisson_disk",
     "butterfly_tpu_torch.geom.trimesh",
@@ -77,6 +78,7 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.trees",
     "butterfly_tpu_torch.trees.fiedler_tree",
     "butterfly_tpu_torch.trees.interval_tree",
+    "butterfly_tpu_torch.trees.native",
     "butterfly_tpu_torch.trees.point_tree",
     "butterfly_tpu_torch.trees.tree",
     "butterfly_tpu_torch.utils",

@@ -3,11 +3,12 @@ trees/fiedler_tree.py, the host eigensolvers of ops/linalg.py,
 ops/device_eigs.py, models/lbo.py, the bf_lbo and fiedler_tree twins and
 the LBO-table path of the retrieval_lbo twin) against the JAX package's.
 
-Both packages get the same meshes and the same numpy matrices. The JAX
-package's native mesh kit is switched off in this module (its NumPy paths
-run, the oracle the kit is tested against): the port copies only those,
-and the kit's FEM matrices differ from them in the last bits, which turns
-the sphere's degenerate eigenvectors (and the Fiedler splits) another way.
+Both packages get the same meshes and the same numpy matrices. Both
+packages' native mesh kits are switched off in this module (their NumPy
+paths run, the oracle the kits are tested against in
+tests/test_native_mesh.py and tests/test_torch_native.py): the kits' FEM
+matrices differ from the NumPy ones in the last bits, which turns the
+sphere's degenerate eigenvectors (and the Fiedler splits) another way.
 The host layers are the same NumPy and scipy code, so meshes, trees, permutations
 and the host eigensolvers' results are identical or agree to 1e-10/1e-12;
 the device eigensolver runs in float64 on the CPU in both, its dense path
@@ -68,6 +69,8 @@ _NATIVE = {}
 
 @pytest.fixture(autouse=True, scope="module")
 def _numpy_mesh_paths():
+    import functools
+
     import butterfly_tpu.geom.native as jnative
 
     _NATIVE["lbo_fem"] = jnative.lbo_fem_native
@@ -75,6 +78,12 @@ def _numpy_mesh_paths():
         for name in ("lbo_fem_native", "boundary_edges_native",
                      "load_obj_native"):
             mp.setattr(jnative, name, lambda *a: None)
+        # the port's: every call takes `use_native=False`
+        for name in ("lbo_fem", "boundary_edges"):
+            mp.setattr(ttm.Trimesh, name, functools.partialmethod(
+                getattr(ttm.Trimesh, name), use_native=False))
+        mp.setattr(ttm.Trimesh, "from_obj", classmethod(functools.partial(
+            ttm.Trimesh.from_obj.__func__, use_native=False)))
         yield
 
 

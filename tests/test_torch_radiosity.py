@@ -6,7 +6,9 @@ float64 in both (the reference's midpoint rule, one broadcast tile), held
 to 1e-12; visibility is float32 Möller–Trumbore in both, held ray for ray
 (no ray of these fields grazes an edge); the radiosity solve is float64
 GMRES, B held to 1e-10 relative and the iterations to one of the JAX
-model's. Meshes and fields are those of tests/test_radiosity.py.
+model's. Meshes and fields are those of tests/test_radiosity.py; the
+culled path is also held on a denser field of 2048 triangles across ray
+chunks and tile budgets (its candidate buckets, split tiles and padding).
 """
 
 import numpy as np
@@ -163,6 +165,43 @@ def test_visibility_matches_jax_on_the_occluder_field():
         np.testing.assert_array_equal(
             tvis.segment_occluded(tm, *pairs, culled=culled, device="cpu"),
             want)
+
+
+def _dense_field():
+    """The JAX test's occluder field at 2048 triangles and 2048 rays."""
+    rng = np.random.default_rng(42)
+    F = B = 2048
+    c = rng.random((F, 1, 3))
+    tris = c + 0.08 * (rng.random((F, 3, 3)) - 0.5)
+    orig = rng.random((B, 3))
+    dirs = rng.random((B, 3)) - orig
+    skip = rng.integers(-1, F, (B, 2)).astype(np.int32)
+    return tris, orig, dirs, skip
+
+
+@pytest.mark.parametrize("ray_chunk,tile_elems,rays", [
+    (16384, 1 << 23, 2048),  # one chunk, whole buckets a launch
+    (500, 1 << 14, 2048),  # 5 chunks, the 512-ray bucket split in two
+    (16, 1 << 10, 300),  # a chunk smaller than the least bucket (32)
+])
+def test_culled_visibility_on_the_device_path(ray_chunk, tile_elems, rays):
+    """The culled path, each chunk on the device with one host read of its
+    candidate counts: equal ray for ray to brute force and to the JAX
+    package's CulledVisibility (no ray of this field grazes an edge), at
+    every chunk size and tile budget."""
+    tris, orig, dirs, skip = _dense_field()
+    orig, dirs, skip = orig[:rays], dirs[:rays], skip[:rays]
+    want = tvis.ray_hits_any(orig, dirs, tris, skip_idx=skip, device="cpu")
+    assert 0.3 < want.mean() < 0.7
+    tcv = tvis.CulledVisibility(tris, leaf_size=64, device="cpu")
+    assert tcv.group_size.sum() == len(tris)
+    tcv.tile_elems = tile_elems
+    got = tcv.ray_hits_any(orig, dirs, skip_idx=skip, ray_chunk=ray_chunk)
+    np.testing.assert_array_equal(got, want)
+    assert tcv.syncs == -(-rays // ray_chunk)
+    jcv = jvis.CulledVisibility(tris, leaf_size=64)
+    np.testing.assert_array_equal(
+        got, jcv.ray_hits_any(orig, dirs, skip_idx=skip))
 
 
 def test_segment_occluded_on_a_mesh_past_the_brute_force_size():
