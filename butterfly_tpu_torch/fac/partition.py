@@ -80,6 +80,7 @@ from butterfly_tpu_torch.ops.cellsp import (
     cells_from_dense_block,
 )
 from butterfly_tpu_torch.ops.linop import LinOp
+from butterfly_tpu_torch.utils import profiling
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 from butterfly_tpu_torch.utils.logging import log_info
@@ -543,8 +544,9 @@ class PartitionPlan:
         """x: (n2, r) float32 interleaved real, TREE index order, on the
         plan's device. Returns (n2, r): the two cell passes (K2 on the
         card, `cells_plain` on the CPU) plus each oversized block's own
-        stage plan."""
-        return self._run(x, plain=False)
+        stage plan. Traced as `plan.apply` (`utils.profiling`)."""
+        with profiling.span("plan.apply"):
+            return self._run(x, plain=False)
 
     def apply_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The same apply with both cell passes through `cells_plain`, on

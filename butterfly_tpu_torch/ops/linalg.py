@@ -48,9 +48,10 @@ import scipy.sparse.linalg as spla
 import torch
 
 from butterfly_tpu_torch.ops.butterfly import _f32_precision
+from butterfly_tpu_torch.utils import profiling
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
-from butterfly_tpu_torch.utils.logging import log_debug, log_info
+from butterfly_tpu_torch.utils.logging import log_debug
 
 __all__ = [
     "GmresResult",
@@ -350,7 +351,22 @@ def solve_gmres_plan(
     A float32 basis floors the relative residual around 1e-6..1e-7; a
     `tol` below that runs to max_iter and reports the floor. `converged` is
     the true final residual under 10 * tol.
+
+    With `utils.profiling.tracing` on, a solve is the span `gmres.solve`
+    over `gmres.residual` (each true residual and its norm read), and per
+    iteration `gmres.apply`, `gmres.orth` (CGS2), `gmres.read` (the
+    Hessenberg column to the host) and `gmres.givens` (the rotations and
+    the residual estimate), then `gmres.update` (back substitution and the
+    update of x) a cycle; it counts `gmres.iters`. On a card, the event
+    pairs `gmres.gap` time the card's idle from each CGS2's end to the
+    cycle's next apply.
     """
+    with profiling.span("gmres.solve", root=True):
+        return _gmres_plan(apply_fn, b, tol, restart, max_iter, device)
+
+
+def _gmres_plan(apply_fn, b, tol, restart, max_iter, device) -> GmresResult:
+    span = profiling.span
     b = _on_device(b, device, complex_ok=True)
     check(b.ndim == 1, "solve_gmres_plan is single-RHS ((n,) vector)",
           InvalidArgumentsError)
@@ -368,13 +384,15 @@ def solve_gmres_plan(
     def resid(x):
         return b - apply_fn(x).reshape(n)
 
+    gaps = profiling.device_gaps("gmres.gap", b.device)
     residuals: list[float] = []
     total = 0
     converged = False
     with _f32_precision("highest"):
         while total < max_iter and not converged:
-            r = resid(x)
-            rnorm = float(torch.linalg.vector_norm(r))
+            with span("gmres.residual"):
+                r = resid(x)
+                rnorm = float(torch.linalg.vector_norm(r))
             residuals.append(rnorm / bnorm)
             if rnorm / bnorm < tol:
                 converged = True
@@ -391,64 +409,77 @@ def solve_gmres_plan(
             for j in range(m):
                 if total >= max_iter:
                     break
-                w = apply_fn(V[j]).reshape(n)
-                # CGS2 against V[0..j] (conj() is free on a real basis)
-                Vj = V[: j + 1]
-                h1 = Vj.conj() @ w
-                w = w - Vj.T @ h1
-                h2 = Vj.conj() @ w
-                w = w - Vj.T @ h2
-                beta = torch.linalg.vector_norm(w)
-                V[j + 1] = w / torch.where(beta > 0, beta,
-                                           torch.ones_like(beta))
-                # the iteration's one fetch: h[0..j] and the new norm
-                hcol = np.zeros(m + 1, hdt)
-                hcol[: j + 2] = torch.cat(
-                    [h1 + h2, beta[None].to(h1.dtype)]).to("cpu", tdt).numpy()
-                for i in range(j):
-                    t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
-                    hcol[i + 1] = (-np.conj(sn[i]) * hcol[i]
-                                   + cs[i] * hcol[i + 1])
-                    hcol[i] = t
-                a, bb = hcol[j], hcol[j + 1]
-                if cplx:
-                    # [c s; -conj(s) c] with c real takes (a, bb) to
-                    # (a/|a| d, 0), d = ||(a, bb)||
-                    d = np.hypot(abs(a), abs(bb))
-                    if d == 0:
-                        cs[j], sn[j] = 1.0, 0.0
-                    elif a == 0:
-                        cs[j], sn[j] = 0.0, np.conj(bb) / abs(bb)
+                with span("gmres.apply"):
+                    if j:   # closes the pair the last CGS2 opened
+                        gaps.stop()
+                    w = apply_fn(V[j]).reshape(n)
+                with span("gmres.orth"):
+                    # CGS2 against V[0..j] (conj() is free on a real basis)
+                    Vj = V[: j + 1]
+                    h1 = Vj.conj() @ w
+                    w = w - Vj.T @ h1
+                    h2 = Vj.conj() @ w
+                    w = w - Vj.T @ h2
+                    beta = torch.linalg.vector_norm(w)
+                    V[j + 1] = w / torch.where(beta > 0, beta,
+                                               torch.ones_like(beta))
+                gaps.start()
+                with span("gmres.read"):
+                    # the iteration's one fetch: h[0..j] and the new norm
+                    hcol = np.zeros(m + 1, hdt)
+                    hcol[: j + 2] = torch.cat(
+                        [h1 + h2, beta[None].to(h1.dtype)]).to(
+                            "cpu", tdt).numpy()
+                with span("gmres.givens"):
+                    for i in range(j):
+                        t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                        hcol[i + 1] = (-np.conj(sn[i]) * hcol[i]
+                                       + cs[i] * hcol[i + 1])
+                        hcol[i] = t
+                    a, bb = hcol[j], hcol[j + 1]
+                    if cplx:
+                        # [c s; -conj(s) c] with c real takes (a, bb) to
+                        # (a/|a| d, 0), d = ||(a, bb)||
+                        d = np.hypot(abs(a), abs(bb))
+                        if d == 0:
+                            cs[j], sn[j] = 1.0, 0.0
+                        elif a == 0:
+                            cs[j], sn[j] = 0.0, np.conj(bb) / abs(bb)
+                        else:
+                            cs[j] = abs(a) / d
+                            sn[j] = a / abs(a) * np.conj(bb) / d
                     else:
-                        cs[j] = abs(a) / d
-                        sn[j] = a / abs(a) * np.conj(bb) / d
-                else:
-                    d = np.hypot(a, bb)
-                    cs[j], sn[j] = (1.0, 0.0) if d == 0 else (a / d, bb / d)
-                hcol[j] = cs[j] * a + sn[j] * bb
-                hcol[j + 1] = 0.0
-                g[j + 1] = -np.conj(sn[j]) * g[j]
-                g[j] = cs[j] * g[j]
-                Hr[:, j] = hcol
-                total += 1
-                j_used = j + 1
-                res = abs(g[j + 1]) / bnorm
-                residuals.append(res)
+                        d = np.hypot(a, bb)
+                        cs[j], sn[j] = ((1.0, 0.0) if d == 0
+                                        else (a / d, bb / d))
+                    hcol[j] = cs[j] * a + sn[j] * bb
+                    hcol[j + 1] = 0.0
+                    g[j + 1] = -np.conj(sn[j]) * g[j]
+                    g[j] = cs[j] * g[j]
+                    Hr[:, j] = hcol
+                    total += 1
+                    j_used = j + 1
+                    res = abs(g[j + 1]) / bnorm
+                    residuals.append(res)
                 if res < tol:
                     converged = True
                     break
             if j_used:
-                y = np.zeros(j_used, hdt)
-                for i in range(j_used - 1, -1, -1):
-                    y[i] = (g[i] - Hr[i, i + 1:j_used] @ y[i + 1:]) / (
-                        Hr[i, i] if Hr[i, i] != 0 else 1.0)
-                x = x + V[:j_used].T @ torch.as_tensor(
-                    y, dtype=V.dtype, device=V.device)
+                with span("gmres.update"):
+                    y = np.zeros(j_used, hdt)
+                    for i in range(j_used - 1, -1, -1):
+                        y[i] = (g[i] - Hr[i, i + 1:j_used] @ y[i + 1:]) / (
+                            Hr[i, i] if Hr[i, i] != 0 else 1.0)
+                    x = x + V[:j_used].T @ torch.as_tensor(
+                        y, dtype=V.dtype, device=V.device)
         # true residual check (the Givens estimate drifts at the f32 floor)
-        final = float(torch.linalg.vector_norm(resid(x))) / bnorm
+        with span("gmres.residual"):
+            final = float(torch.linalg.vector_norm(resid(x))) / bnorm
+    gaps.flush()
+    profiling.count("gmres.iters", total)
     residuals.append(final)
-    log_info("gmres_plan: %d iters, rel res %.3e (givens est %.3e)",
-             total, final, residuals[-2] if len(residuals) > 1 else 0.0)
+    log_debug("gmres_plan: %d iters, rel res %.3e (givens est %.3e)",
+              total, final, residuals[-2] if len(residuals) > 1 else 0.0)
     return GmresResult(x.cpu().numpy(), total, residuals,
                        bool(final < 10 * tol))
 

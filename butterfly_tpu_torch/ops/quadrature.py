@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.ops.linop import Coo
+from butterfly_tpu_torch.utils import profiling
 from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 
 __all__ = ["KR_WEIGHTS", "KrAccumCorrector", "kr_accum_correction",
@@ -134,14 +135,16 @@ class KrAccumCorrector:
         numpy x: complex (n,) or (n, r), on the host; the dtype follows the
         inputs. torch x: the interleaved real embedding, (2n,) or (2n, r),
         on any device; the result is the same float32 embedding on the
-        same device, computed there in complex64."""
-        if isinstance(x, torch.Tensor):
-            return self._apply_interleaved(x)
-        x = np.asarray(x)
-        gathered = x[self.idx]                 # (n, 2p) or (n, 2p, r)
-        coef = (self.coef if gathered.ndim == 2
-                else self.coef[:, :, None])
-        return (coef * gathered).sum(axis=1)
+        same device, computed there in complex64. Traced as `kr.apply`
+        (`utils.profiling`)."""
+        with profiling.span("kr.apply"):
+            if isinstance(x, torch.Tensor):
+                return self._apply_interleaved(x)
+            x = np.asarray(x)
+            gathered = x[self.idx]                 # (n, 2p) or (n, 2p, r)
+            coef = (self.coef if gathered.ndim == 2
+                    else self.coef[:, :, None])
+            return (coef * gathered).sum(axis=1)
 
     def _tables(self, device: torch.device):
         """The coefficient (complex64) and index tables on `device`, copied

@@ -22,7 +22,6 @@ from butterfly_tpu_torch.utils.logging import (
     log_debug,
     log_error,
     log_info,
-    log_metrics,
     log_todo,
     log_warn,
     set_log_level,
@@ -48,7 +47,6 @@ __all__ = [
     "log_debug",
     "log_error",
     "log_info",
-    "log_metrics",
     "log_todo",
     "log_warn",
     "set_log_level",

@@ -3,17 +3,14 @@
 TPU-native replacement for the reference's printf logger
 (reference: src/logging.c:5-76, include/bf/logging.h:15-19). Same level
 lattice (TODO < DEBUG < INFO < WARN < ERROR), implemented on top of the
-stdlib logging module so it composes with host frameworks; adds a
-`log_metrics` helper that emits one structured JSON line per event, which is
-what the bench/driver layers consume.
+stdlib logging module so it composes with host frameworks. The program's
+spans and counters are in `utils/profiling.py`.
 """
 
 from __future__ import annotations
 
-import json
 import logging as _pylogging
 import sys
-import time
 from typing import Any
 
 LOG_TODO = 5
@@ -62,10 +59,3 @@ def log_warn(msg: str, *args: Any) -> None:
 
 def log_error(msg: str, *args: Any) -> None:
     _logger.error(msg, *args)
-
-
-def log_metrics(event: str, **fields: Any) -> None:
-    """Emit one structured JSON metrics line (observability hook)."""
-    rec = {"event": event, "ts": time.time()}
-    rec.update(fields)
-    _logger.info("metrics %s", json.dumps(rec, default=str))

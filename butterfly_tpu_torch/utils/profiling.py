@@ -1,91 +1,49 @@
-"""Per-operator roofline accounting and the profiler hook.
+"""The profiler hook and the program's own spans and counters.
 
-Replacement (and upgrade) for the reference's wall-clock-only instrumentation
-(bfToc sprinkled through examples, src/timer.c): every hot operator exposes
-flops/bytes, and `roofline_report` turns a measured apply time into
-achieved-vs-speed-of-light fractions against the peaks the caller passes
-(there are no defaults: a card's rates and its power limit belong to the
-measurement). `device_trace` wraps `torch.profiler`.
+`device_trace` wraps `torch.profiler`. Its counterpart in
+`butterfly_tpu/utils/profiling.py` swallows every profiler error; this one
+raises them.
 
-Port counterpart of `butterfly_tpu/utils/profiling.py`, with the same cost
-model and arithmetic. Its `device_trace` swallows every profiler error;
-this one raises them.
+Spans and counters mark where the program's time goes: the solver's steps
+and the operator applies beneath them. They are off by default and cost
+one check of a module-level switch then; `tracing(True)` turns them on for
+the process. On, each span keeps its name, its start and end on the host
+clock (`time.perf_counter_ns`), its parent span and its request (the
+enclosing root span, one solve), and while `torch.profiler` records it is
+also an annotation `bf.<name>` in the trace, on the kernels' clock.
+`device_gaps` pairs CUDA events around the card's idle stretches a solve
+leaves. `snapshot()` reads it all, `reset()` clears it. The record lives in
+the process and is written by one thread.
+
+The reference's instrumentation is wall clock only (bfToc through the
+examples, src/timer.c).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import dataclasses
 import os
+import time
 
 import torch
 
-__all__ = ["OpCost", "op_cost", "roofline_report", "device_trace"]
+__all__ = ["device_trace", "tracing", "span", "count", "device_gaps",
+           "snapshot", "reset", "SpanRecord"]
 
+PREFIX = "bf."
 
-@dataclasses.dataclass
-class OpCost:
-    flops_per_col: int  # useful multiply-add flops (x2) per RHS column
-    weight_bytes: int  # parameter bytes streamed per apply
-    io_bytes_per_col: int  # input+output bytes per RHS column
+# one span: host-clock start and end (ns), index of its parent in the
+# record (None at the top) and of its request's root span
+SpanRecord = collections.namedtuple(
+    "SpanRecord", "name start_ns end_ns parent request")
 
-
-def op_cost(op, dtype_bytes: int = 4) -> OpCost:
-    """Cost model for UniformButterfly, StagePlan, CompressedTable, LinOp."""
-    from butterfly_tpu_torch.models.retrieval import CompressedTable
-    from butterfly_tpu_torch.ops.butterfly import UniformButterfly
-    from butterfly_tpu_torch.ops.linop import LinOp
-    from butterfly_tpu_torch.ops.packed import StagePlan
-
-    if isinstance(op, UniformButterfly):
-        m, n = op.shape
-        return OpCost(op.flops_per_col(), op.nbytes(), (m + n) * dtype_bytes)
-    if isinstance(op, StagePlan):
-        m, n = op.shape
-        return OpCost(
-            op.stats.useful_flops_per_col, op.stats.weight_bytes,
-            (m + n) * dtype_bytes,
-        )
-    if isinstance(op, CompressedTable):
-        NB, s, r = op.Psi.shape
-        d = op.dim
-        fl = 2 * NB * (s * r + r * d)
-        return OpCost(fl, op.nbytes(), (op.num_rows + d) * dtype_bytes)
-    if isinstance(op, LinOp):
-        m, n = op.shape
-        # conservative: count stored bytes as streamed, dense-equivalent flops
-        return OpCost(2 * m * n, op.nbytes(), (m + n) * dtype_bytes)
-    raise TypeError(f"no cost model for {type(op).__name__}")
-
-
-def roofline_report(
-    op,
-    num_cols: int,
-    measured_seconds: float,
-    peak_tflops: float,
-    hbm_gbps: float,
-    dtype_bytes: int = 4,
-) -> dict:
-    """Achieved throughput vs the op's speed of light on one device.
-
-    Speed-of-light time = max(compute-limit, minimum-traffic-limit) where the
-    minimum traffic reads every weight byte once and the input/output once.
-    """
-    c = op_cost(op, dtype_bytes)
-    flops = c.flops_per_col * num_cols
-    bytes_min = c.weight_bytes + c.io_bytes_per_col * num_cols
-    t_compute = flops / (peak_tflops * 1e12)
-    t_bw = bytes_min / (hbm_gbps * 1e9)
-    t_sol = max(t_compute, t_bw)
-    return {
-        "useful_tflops": flops / measured_seconds / 1e12,
-        "achieved_frac_sol": t_sol / measured_seconds,
-        "bound": "compute" if t_compute >= t_bw else "bandwidth",
-        "t_compute_limit_ms": t_compute * 1e3,
-        "t_bandwidth_limit_ms": t_bw * 1e3,
-        "measured_ms": measured_seconds * 1e3,
-        "arithmetic_intensity": flops / max(bytes_min, 1),
-    }
+_on = False
+_spans: list = []      # SpanRecord's fields as lists, in start order
+_open: list = []       # indices of the open spans, innermost last
+_counters: dict = {}
+_gaps: dict = {}       # name -> [pairs, seconds]
+_free_events: dict = {}  # device -> CUDA events read and free for reuse
 
 
 @contextlib.contextmanager
@@ -105,3 +63,161 @@ def device_trace(log_dir: str):
     finally:
         prof.stop()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def tracing(enabled: bool) -> bool:
+    """Turn the spans, counters and gaps on or off; returns the previous
+    setting."""
+    global _on
+    was, _on = _on, bool(enabled)
+    return was
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("rec", "owner", "annotation")
+
+    def __init__(self, name: str, root: bool):
+        parent = _open[-1] if _open else None
+        self.owner = _spans
+        idx = len(_spans)
+        request = idx if root or parent is None else _spans[parent][4]
+        self.annotation = None
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(PREFIX + name)
+            self.annotation.__enter__()
+        _open.append(idx)
+        self.rec = [name, time.perf_counter_ns(), None, parent, request]
+        _spans.append(self.rec)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.rec[2] = time.perf_counter_ns()
+        if self.owner is _spans:    # else reset() dropped it
+            _open.pop()             # spans nest: this one is innermost
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+def span(name: str, root: bool = False):
+    """A context that records `name` while tracing is on, and a shared
+    no-op otherwise. A `root` span opens a request: the spans inside it
+    carry its index."""
+    if not _on:
+        return _NO_SPAN
+    return _Span(name, root)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add `k` to the counter `name` while tracing is on."""
+    if _on:
+        _counters[name] = _counters.get(name, 0) + k
+
+
+class _NoGaps:
+    __slots__ = ()
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def flush(self):
+        pass
+
+
+_NO_GAPS = _NoGaps()
+
+
+class _Gaps:
+    """CUDA events in pairs on the device's current stream: `start` where
+    the card runs out of work, `stop` where the host hands it more. A
+    `start` not yet stopped is replaced by the next. `flush` reads the
+    pairs (the caller has synchronised) into the record under the name,
+    and keeps their events for reuse: creating one costs the host more
+    than recording it."""
+
+    def __init__(self, name: str, device: torch.device):
+        self.name = name
+        self.stream = torch.cuda.current_stream(device)
+        self.free = _free_events.setdefault(device, [])
+        self.pending = None
+        self.pairs: list = []
+
+    def _record(self):
+        ev = (self.free.pop() if self.free
+              else torch.cuda.Event(enable_timing=True))
+        ev.record(self.stream)
+        return ev
+
+    def start(self):
+        if self.pending is not None:
+            self.free.append(self.pending)
+        self.pending = self._record()
+
+    def stop(self):
+        if self.pending is not None:
+            self.pairs.append((self.pending, self._record()))
+            self.pending = None
+
+    def flush(self):
+        ms = sum(a.elapsed_time(b) for a, b in self.pairs)
+        rec = _gaps.setdefault(self.name, [0, 0.0])
+        rec[0] += len(self.pairs)
+        rec[1] += ms * 1e-3
+        self.free.extend(ev for pair in self.pairs for ev in pair)
+        if self.pending is not None:
+            self.free.append(self.pending)
+        self.pairs, self.pending = [], None
+
+
+def device_gaps(name: str, device: torch.device):
+    """Event pairs timing the card's idle stretches, recorded under `name`
+    while tracing is on and `device` is a card; a shared no-op
+    otherwise."""
+    device = torch.device(device)
+    if not _on or device.type != "cuda":
+        return _NO_GAPS
+    return _Gaps(name, device)
+
+
+def snapshot() -> dict:
+    """The record so far. `spans`: per name, the closed spans' `calls`,
+    `total_s` (host time) and `self_s` (less the time of their child
+    spans); `counters`; `gaps`: per name, the event `pairs` and their
+    `total_s` on the card's clock; `records`: every SpanRecord in start
+    order."""
+    recs = [SpanRecord(*r) for r in _spans]
+    spans: dict = {}
+    child_ns = [0] * len(recs)
+    for r in recs:
+        if r.end_ns is not None and r.parent is not None:
+            child_ns[r.parent] += r.end_ns - r.start_ns
+    for i, r in enumerate(recs):
+        if r.end_ns is None:
+            continue
+        s = spans.setdefault(r.name, {"calls": 0, "total_s": 0.0,
+                                      "self_s": 0.0})
+        dur = r.end_ns - r.start_ns
+        s["calls"] += 1
+        s["total_s"] += dur * 1e-9
+        s["self_s"] += (dur - child_ns[i]) * 1e-9
+    return {"spans": spans, "counters": dict(_counters),
+            "gaps": {k: {"pairs": p, "total_s": s}
+                     for k, (p, s) in _gaps.items()},
+            "records": recs}
+
+
+def reset() -> None:
+    """Clear the record (the switch keeps its setting). Spans still open
+    are dropped with it."""
+    global _spans, _open
+    _spans, _open = [], []
+    _counters.clear()
+    _gaps.clear()

@@ -5,9 +5,8 @@ package's.
 Files cross between the packages both ways: a LinOp saved by one loads in
 the other with matvecs to 1e-12 (host float64 in both), a butterfly or
 retrieval table saved by the JAX package loads in the port and applies to
-1e-6 (float32), and a streamer checkpoint resumes in either. The cost
-model, the roofline arithmetic and the EvalTree's leaf edges are the same
-host code in both and are held equal.
+1e-6 (float32), and a streamer checkpoint resumes in either. The
+EvalTree's leaf edges are the same host code in both and are held equal.
 """
 
 import json
@@ -25,12 +24,9 @@ from butterfly_tpu.io import serialization as jser
 from butterfly_tpu.models.retrieval import CompressedTable as JTable
 from butterfly_tpu.ops import eval_tree as jet
 from butterfly_tpu.ops import linop as JL
-from butterfly_tpu.ops.butterfly import UniformButterfly as JButterfly
 from butterfly_tpu.ops.butterfly import random_butterfly as jrandom_bf
 from butterfly_tpu.trees import uniform_tree as juniform_tree
-from butterfly_tpu.utils import profiling as jprof
 from butterfly_tpu_torch.config import FacSpec
-from butterfly_tpu_torch.convert import compressed_table_from_numpy
 from butterfly_tpu_torch.examples import tree_evaluator as twin_te
 from butterfly_tpu_torch.fac.streamer import FacStreamer
 from butterfly_tpu_torch.io import serialization as tser
@@ -38,7 +34,6 @@ from butterfly_tpu_torch.models.retrieval import CompressedTable
 from butterfly_tpu_torch.ops import eval_tree as tet
 from butterfly_tpu_torch.ops import linop as TL
 from butterfly_tpu_torch.ops.butterfly import UniformButterfly
-from butterfly_tpu_torch.ops.butterfly import random_butterfly as trandom_bf
 from butterfly_tpu_torch.trees import uniform_tree
 from butterfly_tpu_torch.utils import profiling as tprof
 
@@ -186,35 +181,6 @@ def test_streamer_checkpoint_resumes_in_the_port(tmp_path, saved_by):
         whole.feed(Phi[:, leaf.i0:leaf.i1])
     np.testing.assert_allclose(got, whole.get_fac().as_linop().materialize(),
                                rtol=0, atol=1e-12)
-
-
-def test_cost_model_and_roofline_match_jax():
-    """The same butterfly (NB=8 blocks of 16) and table in both packages,
-    the JAX objects built from the port's numpy factors."""
-    tbf = trandom_bf(8, 16, device="cpu")
-    bf = JButterfly(tbf.leaf.numpy(), [W.numpy() for W in tbf.levels])
-    rng = np.random.default_rng(2)
-    Psi = rng.standard_normal((4, 8, 3)).astype(np.float32)
-    V = rng.standard_normal((4, 3, 5)).astype(np.float32)
-    ct = JTable(jax.numpy.asarray(Psi), jax.numpy.asarray(V))
-    tct = compressed_table_from_numpy(Psi, V, device="cpu")
-    jop, top = _ops(JL)["prod"], _ops(TL)["prod"]
-    for j, t in ((bf, tbf), (ct, tct), (jop, top)):
-        assert tprof.op_cost(t) == tprof.OpCost(
-            **vars(jprof.op_cost(j)))
-        for peaks in ((180.0, 800.0), (67.0, 3350.0)):
-            want = jprof.roofline_report(j, num_cols=64,
-                                         measured_seconds=1e-3,
-                                         peak_tflops=peaks[0],
-                                         hbm_gbps=peaks[1])
-            got = tprof.roofline_report(t, num_cols=64,
-                                        measured_seconds=1e-3,
-                                        peak_tflops=peaks[0],
-                                        hbm_gbps=peaks[1])
-            assert got == want
-    assert tprof.op_cost(tbf).flops_per_col == tbf.flops_per_col()
-    with pytest.raises(TypeError):
-        tprof.op_cost(object())
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
