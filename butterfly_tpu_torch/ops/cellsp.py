@@ -26,11 +26,16 @@ in groups of 8, depth in K2's K-chunks of 16; exact, since only zero
 products are left out) and dropped if it holds none. The entries of a
 tile that read one source block with disjoint rows are merged into
 *groups*, which K2 stages as one chunk, and the tiles are launched in
-order of decreasing work. K2 (`csrc/k2_cell.cu`) runs one CTA per (output
-tile, 128-column tile) over its tile's groups, sums in IEEE-level float32
-and stores each tile once. Source rows past the end of a buffer read as
-zero and ragged columns are masked, so `apply` pads nothing (the TPU's
-`round_r` is gone) and gives the same result at any r.
+order of decreasing work. K2 (`csrc/k2_cell.cu`) has two engines over
+those tables, both summing in IEEE float32 and storing each tile once.
+The tile engine runs one CTA per (output tile, 128-column tile) over its
+tile's groups. The matrix-vector engine, for narrow operands (`k2_engine`:
+r <= _MV_MAX_R), cuts each tile's chunks into *slices* of at most
+_SLICE_CHUNKS (`_slice_tables`), runs one CTA per slice that streams its
+weights once, and lets the last CTA of a tile add the slices' partials in
+slice order. Source rows past the end of a buffer read as zero and ragged
+columns are masked, so `apply` pads nothing (the TPU's `round_r` is gone)
+and gives the same result at any r.
 
 `CellPlan.apply` launches K2 for CUDA tensors and runs `cells_plain`
 (gathered tiles, `torch.bmm` in IEEE float32, `index_add_`) for CPU
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.ops.butterfly import _f32_precision
+from butterfly_tpu_torch.utils import profiling
 from butterfly_tpu_torch.utils.device import resolve_device
 from butterfly_tpu_torch.utils.errors import (
     InvalidArgumentsError,
@@ -55,7 +61,7 @@ from butterfly_tpu_torch.utils.errors import (
 from butterfly_tpu_torch.utils.nvcc import load_kernel
 
 __all__ = ["Cell", "CellPlan", "GM", "GK", "K2", "cells_from_dense_block",
-           "cells_plain"]
+           "cells_plain", "k2_engine"]
 
 GM = 128  # output rows per cell
 GK = 128  # input rows per cell (= source block granularity)
@@ -71,6 +77,13 @@ _GROUP_INTS = 4 + _NRG  # int32 of a group record (kGroupInts of the kernel)
 _CHUNK_COST_RG = 4
 # bytes of gathered tiles per `cells_plain` chunk
 _PLAIN_CHUNK_BYTES = 1 << 28
+# K2's matrix-vector engine: the most K-chunks a slice (one CTA) walks
+_SLICE_CHUNKS = 16
+# the widest r that K2 runs on its matrix-vector engine; wider r takes the
+# tile engine. The engines cross at r ~ 50 on the n=16384 BIE plan and
+# above r = 128 on the n=2048 S' plan (csrc/k2_cell.cu's note): 32 is the
+# widest power of two below both.
+_MV_MAX_R = 32
 
 
 @dataclasses.dataclass
@@ -92,14 +105,24 @@ class Cell:
     w: "np.ndarray | tuple | None"
 
 
+def k2_engine(r: int) -> str:
+    """The K2 engine that an operand of r columns takes: the matrix-vector
+    engine ("mv") for 1 <= r <= _MV_MAX_R, the tile engine ("tile")
+    above."""
+    return "mv" if 1 <= r <= _MV_MAX_R else "tile"
+
+
 class _K2Kernel:
     """ctypes binding of `csrc/k2_cell.cu`. `launches` counts the kernel
-    launches made through this wrapper; nothing else changes it."""
+    launches made through this wrapper, `launches_mv` and `launches_tile`
+    those of each engine; nothing else changes them."""
 
-    engine = "FFMA"  # the product engine compiled into K2 (IEEE float32)
+    engine = "FFMA"  # the arithmetic of both engines (IEEE float32)
 
     def __init__(self):
         self.launches = 0
+        self.launches_mv = 0
+        self.launches_tile = 0
         self._lib = None
 
     def load(self) -> ctypes.CDLL:
@@ -109,6 +132,10 @@ class _K2Kernel:
             P, I = ctypes.c_void_p, ctypes.c_int
             lib.k2_cells.argtypes = [P, P, P, I, P, P, P, P, P, P, I, I, P]
             lib.k2_cells.restype = I
+            lib.k2_cells_mv.argtypes = [P, P, P, I] + [P] * 10 + [I, I, I, P]
+            lib.k2_cells_mv.restype = I
+            lib.k2_mv_tile_cols.argtypes = [I]
+            lib.k2_mv_tile_cols.restype = I
             lib.k2_error_string.argtypes = [I]
             lib.k2_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -116,10 +143,18 @@ class _K2Kernel:
 
     def __call__(self, plan: "CellPlan", bufs) -> torch.Tensor:
         """The plan's cell program on CUDA tensors: bufs[i] (rows_i, r)
-        float32 with rows_i <= plan.buf_rows[i] -> (n_out, r)."""
+        float32 with rows_i <= plan.buf_rows[i] -> (n_out, r), on the
+        engine that `k2_engine(r)` names."""
+        return self.launch(plan, bufs, None)
+
+    def launch(self, plan: "CellPlan", bufs, engine) -> torch.Tensor:
+        """As a call, on `engine` ("mv" or "tile"; None: `k2_engine(r)`).
+        Naming the engine is for measurement: both compute the same
+        program."""
         r = _check_bufs(plan, bufs)
         for b in bufs:
             check(b.is_cuda, "K2 takes CUDA tensors", InvalidArgumentsError)
+        engine = engine or k2_engine(r)
         lib = self.load()
         n = len(bufs)
         y = torch.empty((plan.n_out, r), dtype=torch.float32,
@@ -129,15 +164,34 @@ class _K2Kernel:
         t = plan._tables
         stream = torch.cuda.current_stream(y.device).cuda_stream
         with torch.cuda.device(y.device):
-            err = lib.k2_cells(
-                plan._Wt.data_ptr(), ptrs, rows, n, t["order"].data_ptr(),
-                t["gptr"].data_ptr(), t["grp"].data_ptr(),
-                t["ptr1"].data_ptr(), t["ent1"].data_ptr(), y.data_ptr(),
-                plan.n_out, r, stream)
+            if engine == "mv":
+                ws, arrivals = plan._mv_workspace.get(r) or \
+                    plan._new_mv_workspace(r, lib.k2_mv_tile_cols(r))
+                err = lib.k2_cells_mv(
+                    plan._Wt.data_ptr(), ptrs, rows, n,
+                    t["sorder"].data_ptr(), t["slices"].data_ptr(),
+                    t["sptr"].data_ptr(), t["chunks"].data_ptr(),
+                    t["grp"].data_ptr(), t["ptr1"].data_ptr(),
+                    t["ent1"].data_ptr(), ws.data_ptr(), arrivals.data_ptr(),
+                    y.data_ptr(), plan.n_out, r, plan.num_slices, stream)
+            else:
+                check(engine == "tile", f"K2 has no engine {engine!r}",
+                      InvalidArgumentsError)
+                err = lib.k2_cells(
+                    plan._Wt.data_ptr(), ptrs, rows, n,
+                    t["order"].data_ptr(), t["gptr"].data_ptr(),
+                    t["grp"].data_ptr(), t["ptr1"].data_ptr(),
+                    t["ent1"].data_ptr(), y.data_ptr(), plan.n_out, r,
+                    stream)
         if err != 0:
             raise RuntimeButterflyError(
                 f"K2 launch failed: {lib.k2_error_string(err).decode()}")
         self.launches += 1
+        if engine == "mv":
+            self.launches_mv += 1
+            profiling.count("k2.mv")
+        else:
+            self.launches_tile += 1
         return y
 
 
@@ -313,7 +367,13 @@ class CellPlan:
                 (a if a.size else np.full((1,) + a.shape[1:], -1))
                 .astype(np.int32)))
             for name, a in tab.items()
-            if name in ("order", "gptr", "grp", "ptr1", "ent1")}
+            if name in ("order", "gptr", "grp", "ptr1", "ent1", "sorder",
+                        "slices", "sptr", "chunks")}
+        self.num_slices = tab["slices"].shape[0]
+        # the matrix-vector engine's partials and arrival counters per r,
+        # made at the first launch at that r; launches on one plan run in
+        # stream order, as they share them
+        self._mv_workspace: dict = {}
         # the trimmed matmul entries, CSR per output tile (host numpy)
         self.entries = (tab["ptr0"], tab["ent0"])
         self.num_cells = T
@@ -327,6 +387,19 @@ class CellPlan:
         self._useful_flops = int(useful[widx[k0]].sum())
         self._executed_flops = int(tab["work"].sum())
         self._nbytes = self._Wt.numel() * 4
+
+    def _new_mv_workspace(self, r: int, cols: int):
+        """The matrix-vector engine's workspace at r, for column tiles of
+        `cols`: the slices' partials and the tiles' arrival counters
+        (zero; the last CTA of a tile resets its own)."""
+        n_ctiles = -(-r // cols)
+        n_tiles = self._tables["sptr"].numel() - 1
+        ws = (torch.empty(self.num_slices * n_ctiles * GM * cols,
+                          dtype=torch.float32, device=self.device),
+              torch.zeros(n_tiles * n_ctiles, dtype=torch.int32,
+                          device=self.device))
+        self._mv_workspace[r] = ws
+        return ws
 
     @property
     def W(self) -> torch.Tensor:
@@ -468,8 +541,9 @@ def _cell_tables(n_out: int, dst, src_buf, src_blk, widx, kind, lo, hi):
     Returns numpy arrays: ptr0/ent0 (the matmul entries' CSR per tile),
     gptr/grp (the groups' CSR), ptr1/ent1 (plain adds, untrimmed, depth
     [0, GK)), work (executed flops per column of each tile), order (tiles
-    by decreasing work, stable), and split (matmul pieces before
-    trimming)."""
+    by decreasing work, stable), split (matmul pieces before trimming),
+    and the matrix-vector engine's chunks, slices, sptr and sorder
+    (`_slice_tables`)."""
     n_tiles = -(-n_out // GM)
     idx, tile, o0, w0, nr = _split(n_out, dst)
     mm = kind[idx] == 0
@@ -534,7 +608,37 @@ def _cell_tables(n_out: int, dst, src_buf, src_blk, widx, kind, lo, hi):
                               minlength=n_tiles).astype(np.int64)
     out["order"] = np.argsort(-out["work"], kind="stable")
     out["gptr"], out["grp"] = gptr, grp
+    out.update(_slice_tables(n_tiles, gtile, c0, c1, mask))
     return out
+
+
+def _slice_tables(n_tiles: int, gtile, c0, c1, mask):
+    """The matrix-vector engine's input: every chunk of every group, in
+    group (so tile) order, and each tile's chunks cut into slices of at
+    most _SLICE_CHUNKS chunks, as even as the count allows; a tile without
+    chunks gets one empty slice, which stores it. Returns chunks (n, 2):
+    (group, chunk); slices (S, 4): (tile, first chunk, end chunk, 0), in
+    tile order; sptr, the slices' CSR per tile; sorder, the slices by
+    decreasing work (covered row groups times chunks), stable."""
+    nch = c1 - c0
+    first = np.cumsum(nch) - nch
+    total = int(nch.sum())
+    cg = np.repeat(np.arange(nch.size), nch)
+    chunks = np.stack([cg, c0[cg] + np.arange(total) - first[cg]], 1)
+    per_tile = np.bincount(gtile, weights=nch, minlength=n_tiles
+                           ).astype(np.int64)
+    cptr = np.concatenate([[0], np.cumsum(per_tile)])
+    ns = np.maximum(1, -(-per_tile // _SLICE_CHUNKS))
+    sptr = np.concatenate([[0], np.cumsum(ns)])
+    st = np.repeat(np.arange(n_tiles), ns)
+    k = np.arange(st.size) - sptr[st]
+    j0 = cptr[st] + per_tile[st] * k // ns[st]
+    j1 = cptr[st] + per_tile[st] * (k + 1) // ns[st]
+    rgs = sum((mask >> b) & 1 for b in range(_NRG))
+    cw = np.concatenate([[0], np.cumsum(rgs[cg])])
+    return {"chunks": chunks, "sptr": sptr,
+            "slices": np.stack([st, j0, j1, np.zeros_like(st)], 1),
+            "sorder": np.argsort(-(cw[j1] - cw[j0]), kind="stable")}
 
 
 def cells_from_dense_block(W, i0: int, j0: int, out_cells: list) -> None:

@@ -346,32 +346,60 @@ def materialize(plan, chunk: int = 1024) -> torch.Tensor:
     return D
 
 
-def k2_on_plan(label: str, plan, gen, timer, rs=(1, 64)) -> dict:
+def k2_on_plan(label: str, plan, gen, timer, rs=None) -> dict:
     """K2 on a partition plan against `cells_plain` at r in `rs` (not
-    counted), timed beside the plain passes, the materialized operator's
-    `D @ x` (the library call) and the bound: the plan's weights and the
-    buffers over the HBM rate, its useful flops over the float32 peak."""
+    counted; by default 1, 2, the widest r of the matrix-vector engine, the
+    next r and 64), on the engine that r takes, timed pass by pass beside
+    the tile engine at the same r, the plain passes, the materialized
+    operator's `D @ x` (the library call) and the bound: the plan's
+    weights and the buffers over the HBM rate, its useful flops over the
+    float32 peak. Two r=1 applies of one input must be bit-identical."""
+    from butterfly_tpu_torch.ops.cellsp import _MV_MAX_R, K2, k2_engine
+
     c1, c2 = plan.cells1, plan.cells2
     D = materialize(plan)
     out = {}
-    for r in rs:
+    for r in rs or sorted({1, 2, _MV_MAX_R, _MV_MAX_R + 1, 64}):
         x = torch.randn((plan.n2, r), generator=gen, device=plan.device)
         y, y_plain = plan.apply(x), plan.apply_plain(x)
         err = rel_err(y, y_plain)
         require(y.shape == (plan.n2, r) and bool(torch.isfinite(y).all()),
                 f"{label} r={r}: output")
         require(err <= 1e-5, f"{label} r={r}: K2 vs plain {err:.3e}")
+        if r == 1:
+            require(torch.equal(y, plan.apply(x)),
+                    f"{label} r=1: two applies of one input differ")
         t = (c1.apply([x]) if c1 is not None else torch.zeros(
             (plan.t_rows, r), device=plan.device))
-        p1 = (1e3 * timer(lambda: c1.apply([x]), warmup=2, iters=20)
-              if c1 is not None else 0.0)
-        p2 = 1e3 * timer(lambda: c2.apply([x, t]), warmup=2, iters=20)
+
+        def passes(engine):
+            """ms of each pass on `engine` (None: the rule's), and the
+            launches of each engine over the timing."""
+            before = (K2.launches_mv, K2.launches_tile)
+            p1 = (1e3 * timer(lambda: K2.launch(c1, [x], engine), warmup=2,
+                              iters=20) if c1 is not None else 0.0)
+            p2 = 1e3 * timer(lambda: K2.launch(c2, [x, t], engine),
+                             warmup=2, iters=20)
+            return [p1, p2], dict(mv=K2.launches_mv - before[0],
+                                  tile=K2.launches_tile - before[1])
+
+        (p1, p2), launches = passes(None)
+        tile_ms, tile_launches = passes("tile")
+        # the tile engine at this r, pass by pass, against the plain passes
+        tile_err = max(rel_err(K2.launch(c, b, "tile"), c.apply_plain(b))
+                       for c, b in ((c1, [x]), (c2, [x, t])) if c is not None)
+        require(tile_err <= 1e-5,
+                f"{label} r={r}: K2's tile engine vs plain {tile_err:.3e}")
         plain = 1e3 * timer(lambda: plan.apply_plain(x), warmup=1, iters=10)
         nbytes = plan.nbytes() + 2 * nbytes_of(x) + nbytes_of(t)
         b_ms, b_by = bound_ms(plan.useful_flops_per_col() * r, nbytes,
                               PEAK_F32)
         out[r] = dict(
-            ms=p1 + p2, k2_pass_ms=[p1, p2], plain_ms=plain,
+            engine=k2_engine(r), ms=p1 + p2, k2_pass_ms=[p1, p2],
+            launches=launches, tile_engine_pass_ms=tile_ms,
+            tile_engine_launches=tile_launches,
+            tile_engine_rel_err_vs_plain=tile_err,
+            plain_ms=plain,
             library_ms=1e3 * timer(lambda: D @ x, warmup=2, iters=20),
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
             rel_err_vs_plain=err, rel_err_dense_vs_apply=rel_err(D @ x, y),
@@ -410,13 +438,15 @@ def bie_phase(dev, timer):
         k2 = k2_on_plan(label, plan, torch.Generator(device=dev).manual_seed(
             31), timer)
         K1.launches = 0
-        K2.launches = 0
+        K2.launches = K2.launches_mv = K2.launches_tile = 0
         rec = solve(prob)
         torch.cuda.synchronize()
         require(K2.launches > 0 and K1.launches == 0,
                 f"{label}: the solve launched K2 {K2.launches} and K1 "
                 f"{K1.launches} times")
         case_launches = K2.launches
+        rec["k2_launches_by_engine"] = dict(mv=K2.launches_mv,
+                                            tile=K2.launches_tile)
         launches += case_launches
         require(rec["mvp_rel"] <= 1e-6,
                 f"{label}: card MVP vs the dense system {rec['mvp_rel']:.3e}")
@@ -484,7 +514,9 @@ def bie_phase(dev, timer):
               f"{rec['f32_residual_floor']:.3e}: plan "
               f"{rec['floor_from_plan']:.3e}, corrector "
               f"{rec['floor_from_corrector']:.3e}), {rec['ms_per_iter']:.3f} "
-              f"ms an iteration, K2 {rec['k2_launches']} launches; on the "
+              f"ms an iteration, K2 {rec['k2_launches']} launches in GMRES "
+              f"(by engine over the whole solve call: "
+              f"{rec['k2_launches_by_engine']}); on the "
               f"interleaved real embedding {rec['real_gmres_iters']} "
               f"iterations (true residual {rec['real_gmres_rel_res']:.3e}), "
               f"{rec['real_ms_per_iter']:.3f} ms an iteration, K2 "
@@ -492,7 +524,9 @@ def bie_phase(dev, timer):
               f"{rec['complex_linearity']:.3e} (MVP {rec['mvp_rel']:.3e}); "
               "on the host "
               f"{rec['host_gmres_iters']} (tol 1e-10, complex float64); "
-              f"K2 r=1 {k2[1]['ms']:.4f} ms against a bound of "
+              f"K2 r=1 {k2[1]['ms']:.4f} ms ({k2[1]['engine']} engine; "
+              f"tile engine {sum(k2[1]['tile_engine_pass_ms']):.4f} ms) "
+              f"against a bound of "
               f"{k2[1]['bound_ms']:.4f} ms ({k2[1]['bound_by']}), plain "
               f"{k2[1]['plain_ms']:.4f} ms, D @ x {k2[1]['library_ms']:.4f} "
               "ms", flush=True)

@@ -5,8 +5,8 @@ The JAX side runs K2 (`_cell_kernel`) in Pallas interpret mode, as its own
 tests do; the port runs `cells_plain`, which any CPU tensor takes. K2
 itself runs only on the card (`chip_smoke.py` holds it against
 `cells_plain` there). What the kernel reads on the host's behalf — the
-per-output-tile entry lists — is checked here by replaying them in numpy
-exactly as the kernel walks them.
+per-output-tile entry lists, and the slices of its matrix-vector engine —
+is checked here by replaying them in numpy as the kernel walks them.
 """
 
 import numpy as np
@@ -18,8 +18,9 @@ from butterfly_tpu.ops.cellsp import CellPlan as JaxCellPlan
 from butterfly_tpu.ops.cellsp import \
     cells_from_dense_block as jax_cells_from_dense_block
 from butterfly_tpu_torch.convert import cells_from_numpy
-from butterfly_tpu_torch.ops.cellsp import _KC, GK, GM, Cell, CellPlan, \
-    cells_from_dense_block
+from butterfly_tpu_torch.ops.cellsp import _KC, _MV_MAX_R, _SLICE_CHUNKS, \
+    GK, GM, K2, Cell, CellPlan, cells_from_dense_block, cells_plain, \
+    k2_engine
 
 
 def _dense_from_cells(cells, n_out, n_in, dev_tiles=()):
@@ -178,23 +179,29 @@ def test_cells_from_dense_block_match_jax():
         np.testing.assert_array_equal(c.w, j.w)
 
 
-@pytest.mark.parametrize("r", [1, 37])
-def test_straddling_and_ragged_cells_match_dense(r):
+def _straddling_cells(rng):
     """dst mod 128 in {8, 120} (a cell split over two output tiles), plain
     adds that straddle or read past their buffer's end, a cell whose rows
-    run past n_out, merged cells and device-made tiles, at r=1 and a
-    ragged r — against a dense numpy oracle."""
-    rng = np.random.default_rng(2)
+    run past n_out, two cells that merge and a device-made tile. Returns
+    (n_out, buf_rows, cells, device stacks)."""
 
     def tile():
         return rng.standard_normal((GM, GK)).astype(np.float32)
 
     dev = [rng.standard_normal((5, GM, GK)).astype(np.float32)]
-    n_out, buf_rows = 400, [512, 300]
     cells = [Cell(8, 0, 0, tile()), Cell(120, 1, 1, tile()),
              Cell(248, 0, 3, tile()), Cell(248, 0, 3, tile()),
              Cell(136, 1, 2, None), Cell(0, 1, 0, None),
              Cell(400 - 56, 0, 1, tile()), Cell(256, 1, 0, ("dev", 0, 4))]
+    return 400, [512, 300], cells, dev
+
+
+@pytest.mark.parametrize("r", [1, 37])
+def test_straddling_and_ragged_cells_match_dense(r):
+    """The straddling cells (`_straddling_cells`) at r=1 and a ragged r —
+    against a dense numpy oracle."""
+    rng = np.random.default_rng(2)
+    n_out, buf_rows, cells, dev = _straddling_cells(rng)
     plan = CellPlan(n_out, buf_rows, cells,
                     dev_tiles=[torch.from_numpy(dev[0])], device="cpu")
     assert plan.num_cells == len(cells) - 1  # the two at (248, 0, 3) merge
@@ -366,3 +373,135 @@ def test_executed_flops_match_the_replay():
     assert (plan.useful_flops_per_col() <= flops
             < plan.flops_per_col())
     assert plan.tile_work.sum() == flops
+
+
+def _replay_mv(plan, bufs):
+    """y as K2's matrix-vector engine computes it from the slice tables, in
+    numpy: slices in launch order, warp w of a slice taking its chunks w,
+    w + 8, ..., each chunk adding the 16-deep product of every 8-row group
+    its group covers; the warps' sums added in warp order; then each
+    tile's partials in slice order and its plain adds."""
+    t = {k: v.numpy() for k, v in plan._tables.items()}
+    W = plan.W.numpy().astype(np.float64)
+    r = bufs[0].shape[1]
+    n_tiles = t["sptr"].size - 1
+    part = np.zeros((t["slices"].shape[0], GM, r))
+    assert sorted(t["sorder"]) == list(range(part.shape[0]))
+    for si in t["sorder"]:
+        _, j0, j1, _ = t["slices"][si]
+        for warp in range(8):
+            acc = np.zeros((GM, r))
+            for j in range(j0 + warp, j1, 8):
+                g, c = t["chunks"][j]
+                grp = t["grp"][g]
+                X = _source(bufs, grp[0], grp[1])[c * _KC:(c + 1) * _KC]
+                for rg in range(GM // 8):
+                    if grp[4 + rg] >= 0:
+                        w, wrg = divmod(int(grp[4 + rg]), GM // 8)
+                        acc[8 * rg:8 * rg + 8] += W[w][
+                            8 * wrg:8 * wrg + 8, c * _KC:(c + 1) * _KC] @ X
+            part[si] += acc
+    y = np.zeros((n_tiles * GM, r))
+    for tile in range(n_tiles):
+        rows = slice(tile * GM, (tile + 1) * GM)
+        for s in range(t["sptr"][tile], t["sptr"][tile + 1]):
+            y[rows] += part[s]
+        for _, src, row0, p in t["ent1"][t["ptr1"][tile]:t["ptr1"][tile + 1]]:
+            o0, w0, nr = p & 0xFF, (p >> 8) & 0xFF, (p >> 16) & 0xFF
+            X = _source(bufs, src, row0)
+            y[tile * GM + o0:tile * GM + o0 + nr] += X[w0:w0 + nr]
+    return y[:plan.n_out]
+
+
+def _long_tile_cells(rng):
+    """One 100 x 1900 block at a sub-8 row shift: its output tile walks
+    over a hundred K-chunks, so the engine cuts it into several slices; an
+    empty tile below it."""
+    cells = []
+    cells_from_dense_block(rng.standard_normal((100, 1900)) / 8, 10, 30,
+                           cells)
+    return 384, [2048], cells, []
+
+
+@pytest.mark.parametrize("case", ["straddling", "trimmed", "zero_half",
+                                  "long_tile"])
+def test_slice_tables_cover_the_groups_and_replay_dense(case):
+    """The matrix-vector engine's slices cover every chunk of every group
+    once and in order, hold at most _SLICE_CHUNKS chunks each, lie
+    contiguous within their tile (one at least a tile) and launch heaviest
+    first; a numpy replay of the engine from them matches the dense product
+    at r in {1, 2, 3, _MV_MAX_R}."""
+    rng = np.random.default_rng(8)
+    if case == "straddling":
+        n_out, buf_rows, cells, dev = _straddling_cells(rng)
+    elif case == "trimmed":
+        cells, dev = _rank_padded_cells(rng)
+        n_out, buf_rows, dev = 768, [512, 768], [d.numpy() for d in dev]
+    elif case == "zero_half":
+        top = np.zeros((GM, GK), np.float32)
+        top[:64] = rng.standard_normal((64, GK))
+        cells = [Cell(64, 0, 0, top),
+                 Cell(384, 0, 2, np.zeros((GM, GK), np.float32))]
+        n_out, buf_rows, dev = 512, [384], []
+    else:
+        n_out, buf_rows, cells, dev = _long_tile_cells(rng)
+    plan = CellPlan(n_out, buf_rows, cells,
+                    dev_tiles=[torch.from_numpy(d) for d in dev],
+                    device="cpu")
+    t = {k: v.numpy() for k, v in plan._tables.items()}
+    gptr, grp, sptr, slices = t["gptr"], t["grp"], t["sptr"], t["slices"]
+    n_tiles = -(-n_out // GM)
+    want = [(g, c) for g in range(plan.num_groups)
+            for c in range(grp[g, 2] & 0xFF, grp[g, 2] >> 8)]
+    got = [tuple(t["chunks"][j]) for _, j0, j1, _ in slices
+           for j in range(j0, j1)]
+    assert got == want
+    assert plan.num_slices == slices.shape[0] == sptr[-1]
+    assert sptr[0] == 0 and (np.diff(sptr) >= 1).all()
+    assert (slices[:, 0] == np.repeat(np.arange(n_tiles),
+                                      np.diff(sptr))).all()
+    assert (slices[1:, 1] == slices[:-1, 2]).all()
+    sizes = slices[:, 2] - slices[:, 1]
+    assert (sizes >= 0).all() and (sizes <= _SLICE_CHUNKS).all()
+    for tile in range(n_tiles):  # a tile's slices hold its groups' chunks
+        j0, j1 = slices[sptr[tile], 1], slices[sptr[tile + 1] - 1, 2]
+        assert {g for g, _ in want[j0:j1]} == set(
+            range(gptr[tile], gptr[tile + 1]))
+    covered = (grp[:, 4:] >= 0).sum(1) if grp.size else np.zeros(0)
+    work = [sum(covered[t["chunks"][j][0]] for j in range(j0, j1))
+            for _, j0, j1, _ in slices]
+    assert (np.diff(np.asarray(work)[t["sorder"]]) <= 0).all()
+    if case == "long_tile":
+        assert sptr[1] - sptr[0] > 1
+    for r in (1, 2, 3, _MV_MAX_R):
+        bufs = [rng.standard_normal((b, r)).astype(np.float32)
+                for b in buf_rows]
+        X = np.concatenate([np.pad(b, ((0, -(-b.shape[0] // GK) * GK
+                                        - b.shape[0]), (0, 0)))
+                            for b in bufs])
+        offs = np.concatenate([[0], np.cumsum(
+            [-(-b // GK) for b in buf_rows])])
+        shifted = [Cell(c.dst, 0, c.src_blk + offs[c.src_buf], c.w)
+                   for c in cells]
+        dense = _dense_from_cells(shifted, n_out, X.shape[0], dev) @ X
+        y = _replay_mv(plan, bufs)
+        assert np.linalg.norm(y - dense) <= 1e-5 * max(
+            np.linalg.norm(dense), 1e-30)
+
+
+def test_k2_engine_rule_and_the_cpu_path():
+    """The engine follows r alone: the matrix-vector engine for 1 <= r <=
+    _MV_MAX_R, the tile engine above. CellPlan.apply on CPU tensors still
+    runs `cells_plain`, and launches neither engine."""
+    assert [k2_engine(r) for r in (1, 2, 3, _MV_MAX_R)] == ["mv"] * 4
+    assert [k2_engine(r) for r in (_MV_MAX_R + 1, 1024)] == ["tile"] * 2
+    rng = np.random.default_rng(9)
+    n_out, buf_rows, cells, dev = _straddling_cells(rng)
+    plan = CellPlan(n_out, buf_rows, cells,
+                    dev_tiles=[torch.from_numpy(dev[0])], device="cpu")
+    counts = (K2.launches, K2.launches_mv, K2.launches_tile)
+    for r in (1, _MV_MAX_R + 1):
+        bufs = [torch.from_numpy(rng.standard_normal((b, r)).astype(
+            np.float32)) for b in buf_rows]
+        assert torch.equal(plan.apply(bufs), cells_plain(plan, bufs))
+    assert (K2.launches, K2.launches_mv, K2.launches_tile) == counts
