@@ -11,22 +11,18 @@ from `make_multilevel` in tree order; its MVP rel error, the dense LU
 solve, host `solve_gmres` and the field errors against the exact
 interior-source solution. It prints the JAX script's lines for them.
 
-Then it solves on the card (`CardBie`): the S' operator compiled into the
-two-pass cell program (`partition_apply_plan`, kernel K2), the
+Then it solves on the card through the library's card system
+(`models/bie.py`: `card_system`, `CardBie`): the S' operator compiled into
+the two-pass cell program (`partition_apply_plan`, kernel K2), the
 tree-permuted accumulate corrector on the card (`KrAccumCorrector`, torch
-ops), and `solve_gmres_plan` (tol 3e-7, the scale twin's: a float32
-basis floors near 1e-7; max_iter 400 and no restarts, as the JAX script's
-host GMRES) on sys(v) = 0.5 v + plan(v w) + corr(v w). The plan applies
-the interleaved real embedding (row 2i = Re_i, 2i+1 = Im_i), which is
-torch's complex layout: GMRES runs a complex64 basis on the card
-(`sys_apply_complex`, a view of the same storage), as the JAX script's
-host GMRES runs a complex one. `solve(..., basis="real")` runs the real
-basis on the embedding instead (about twice the iterations).
+ops), and GMRES in a complex64 basis on the card (tol 3e-7, max_iter 400,
+no restarts) on sys(v) = 0.5 v + plan(v w) + corr(v w), as the JAX
+script's host GMRES runs a complex one.
 It prints the same lines for that solve and one JSON row: `n, k, mvp_rel`
 (the card system against the dense float64 system, in tree order),
-`gmres_iters, gmres_s, ms_per_iter, k2_launches` (over the solve),
-`f32_residual_floor` (the card system's residual at the dense-LU density)
-with its two sources `floor_from_plan` and `floor_from_corrector`,
+`gmres_tol, gmres_iters, gmres_s, ms_per_iter, k2_launches` (over the
+solve), `f32_residual_floor` (the card system's residual at the dense-LU
+density) with its two sources `floor_from_plan` and `floor_from_corrector`,
 `density_rel_vs_dense_lu, field_rel_err, plan_s, windows, weights_mb,
 apply_ms_r1` (K2's two passes at one column) and the host figures beside
 them.
@@ -52,170 +48,20 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.fac import helm2 as fac_helm2
-from butterfly_tpu_torch.fac.partition import (
-    PartitionPlan,
-    partition_apply_plan,
-)
 from butterfly_tpu_torch.geom import Ellipse
-from butterfly_tpu_torch.ops.cellsp import K2
-from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
-from butterfly_tpu_torch.ops.linalg import solve_gmres, solve_gmres_plan
-from butterfly_tpu_torch.ops.linop import Diag, Identity, Product, Scaled, Sum
-from butterfly_tpu_torch.ops.quadrature import (
-    KrAccumCorrector,
-    kr_accum_correction,
-    kr_correction,
+from butterfly_tpu_torch.models.bie import (
+    CardBie,
+    card_system,
+    card_timings,
+    gmres_row,
+    rel,
 )
+from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
+from butterfly_tpu_torch.ops.linalg import solve_gmres
+from butterfly_tpu_torch.ops.linop import Diag, Identity, Product, Scaled, Sum
+from butterfly_tpu_torch.ops.quadrature import kr_correction
 from butterfly_tpu_torch.trees import Quadtree
 from butterfly_tpu_torch.utils.device import resolve_device
-from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
-from butterfly_tpu_torch.utils.timer import device_time
-
-# the card solve: helm2_scale's tolerance; the JAX script's max_iter, run
-# without restarts as its host GMRES runs (GMRES(80) on the interleaved
-# real embedding stalls from k=100 on in the scattering k-sweep)
-GMRES_TOL, GMRES_MAX_ITER = 3e-7, 400
-
-
-def rel(got, want) -> float:
-    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
-
-
-@dataclasses.dataclass
-class CardBie:
-    """The BIE system 0.5 I + (K + C) W on a device, in tree order and the
-    interleaved real embedding (row 2i = Re_i, 2i+1 = Im_i), which is the
-    memory layout of a complex tensor: K compiled into a partition plan
-    from the host operator `A_bf` (tree order), C the tree-permuted
-    accumulate corrector, W the quadrature weights `w` (original order)."""
-
-    plan: PartitionPlan
-    corr: KrAccumCorrector
-    wp2: torch.Tensor
-    perm: np.ndarray
-    A_bf: object
-    w: np.ndarray
-    rec: dict
-
-    @property
-    def device(self) -> torch.device:
-        return self.plan.device
-
-    def sys_apply(self, v: torch.Tensor) -> torch.Tensor:
-        u = v * self.wp2
-        return (0.5 * v + self.plan.apply(u[:, None])[:, 0]
-                + self.corr.apply(u))
-
-    def sys_apply_complex(self, z: torch.Tensor) -> torch.Tensor:
-        """The system on a complex64 (n,) vector: `sys_apply` on its
-        interleaved real view, the result viewed as complex again."""
-        return torch.view_as_complex(
-            self.sys_apply(torch.view_as_real(z).reshape(-1)).reshape(-1, 2))
-
-    def to_card_complex(self, z: np.ndarray) -> torch.Tensor:
-        """Complex (n,) in original order -> complex64 (n,) in tree order,
-        on the device."""
-        zp = np.asarray(z, np.complex64)[self.perm]
-        return torch.from_numpy(zp).to(self.device)
-
-    def to_card(self, z: np.ndarray) -> torch.Tensor:
-        """Complex (n,) in original order -> interleaved float32 (2n,) in
-        tree order, on the device: the real view of `to_card_complex`."""
-        return torch.view_as_real(self.to_card_complex(z)).reshape(-1)
-
-    def from_card(self, x) -> np.ndarray:
-        """Interleaved real (2n,) or complex (n,) in tree order, a tensor
-        or numpy -> complex128 (n,) in original order, on the host."""
-        x = torch.as_tensor(x)
-        if not x.is_complex():
-            x = torch.view_as_complex(x.double().reshape(-1, 2))
-        out = np.empty(x.shape[0], np.complex128)
-        out[self.perm] = x.cpu().numpy()
-        return out
-
-    def residual_floor(self, sigma: np.ndarray, rhs: np.ndarray) -> dict:
-        """`f32_residual_floor`: ||b - sys(sigma)|| / ||b|| for a density
-        in original order, computed on the device as GMRES computes its
-        true residual; at the dense-LU density no float32 solve reads a
-        lower one. Beside it its two sources over ||b||, at the same
-        density: `floor_from_plan`, the plan's float32 error against the
-        host float64 operator, and `floor_from_corrector`, the corrector's
-        complex64 error against its complex128 apply."""
-        b2, x = self.to_card(rhs), self.to_card(sigma)
-        r = b2 - self.sys_apply(x)
-        u2, u = x * self.wp2, (self.w * sigma)[self.perm]
-        got_plan = self.from_card(self.plan.apply(u2[:, None])[:, 0])
-        got_corr = self.from_card(self.corr.apply(u2))
-        bnorm = np.linalg.norm(rhs)
-        return {
-            "f32_residual_floor": float(torch.linalg.vector_norm(r)
-                                        / torch.linalg.vector_norm(b2)),
-            "floor_from_plan": float(np.linalg.norm(
-                got_plan[self.perm] - self.A_bf.matvec(u)) / bnorm),
-            "floor_from_corrector": float(np.linalg.norm(
-                got_corr[self.perm] - self.corr.apply(u)) / bnorm)}
-
-    def solve(self, rhs: np.ndarray, basis: str = "complex"):
-        """GMRES on the device for a complex right-hand side in original
-        order: a complex64 Krylov basis on `sys_apply_complex`, or with
-        `basis="real"` a float32 one on the interleaved real embedding.
-        Returns (sigma in original order, GMRES result, seconds, K2
-        launches over the solve)."""
-        check(basis in ("complex", "real"), f"basis {basis!r}",
-              InvalidArgumentsError)
-        if basis == "complex":
-            b, op = self.to_card_complex(rhs), self.sys_apply_complex
-        else:
-            b, op = self.to_card(rhs), self.sys_apply
-        launches = K2.launches
-        t0 = time.perf_counter()
-        res = solve_gmres_plan(op, b, tol=GMRES_TOL, restart=GMRES_MAX_ITER,
-                               max_iter=GMRES_MAX_ITER)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        secs = time.perf_counter() - t0
-        return self.from_card(res.x), res, secs, K2.launches - launches
-
-
-def card_system(A_bf, perm: np.ndarray, w: np.ndarray, kernel_ij,
-                order: int, offsets=None, device=None) -> CardBie:
-    """Compile the factorized operator `A_bf` (tree order) into a partition
-    plan on `device` (default: the card) and build the accumulate
-    corrector of the boundaries `offsets` (one Python `kernel_ij` call per
-    entry), permuted into tree order and copied to the device."""
-    device = resolve_device(device)
-    n = A_bf.shape[0]
-    rec = {}
-    t0 = time.perf_counter()
-    plan = partition_apply_plan(A_bf, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    rec["plan_s"] = time.perf_counter() - t0
-    rec["windows"] = plan.windows
-    rec["weights_mb"] = plan.nbytes() / 1e6
-    rec["lr_classes"] = plan._lr_meta
-    t0 = time.perf_counter()
-    corr = kr_accum_correction(order, n, kernel_ij, offsets=offsets,
-                               perm=perm)
-    rec["corr_s"] = time.perf_counter() - t0
-    wp2 = torch.as_tensor(np.repeat(w[perm], 2), dtype=torch.float32,
-                          device=device)
-    return CardBie(plan, corr, wp2, np.asarray(perm), A_bf, np.asarray(w),
-                   rec)
-
-
-def card_timings(card: CardBie, rec: dict) -> None:
-    """K2's two passes and the whole system at one column (GMRES's shape),
-    medians of CUDA-event timings; None on the CPU."""
-    on_card = card.device.type == "cuda"
-    gen = torch.Generator(device=card.device).manual_seed(0)
-    v = torch.randn((card.plan.n2,), generator=gen, device=card.device)
-    rec["apply_ms_r1"] = (1e3 * device_time(
-        lambda: card.plan.apply(v[:, None]), warmup=2, iters=20)
-        if on_card else None)
-    rec["sys_ms_r1"] = (1e3 * device_time(lambda: card.sys_apply(v),
-                                          warmup=2, iters=20)
-                        if on_card else None)
 
 
 @dataclasses.dataclass
@@ -316,16 +162,6 @@ def setup(n: int = 2048, k: float = 40.0, kr_order: int = 6,
     return prob
 
 
-def gmres_row(rec: dict, res, secs: float, launches: int) -> None:
-    """The card solve's entries of a row: iterations, times, the last
-    Givens residual estimate and the true final residual."""
-    rec.update(gmres_iters=int(res.num_iter), gmres_s=secs,
-               ms_per_iter=1e3 * secs / max(res.num_iter, 1),
-               gmres_givens_res=res.residuals[-2],
-               gmres_rel_res=res.residuals[-1],
-               gmres_converged=bool(res.converged), k2_launches=launches)
-
-
 def solve(prob: Helm2Bie) -> dict:
     """The card half: the system's MVP against the dense system, its
     timings, the float32 residual floor at the dense-LU density
@@ -340,8 +176,14 @@ def solve(prob: Helm2Bie) -> dict:
     card_timings(card, rec)
     rec.update(card.residual_floor(prob.sigma_dense, prob.rhs))
 
-    sigma, res, secs, launches = card.solve(prob.rhs)
-    gmres_row(rec, res, secs, launches)
+    # tol: helm2_scale's (a float32 basis floors near 1e-7); the JAX
+    # script's max_iter, run without restarts as its host GMRES runs
+    # (GMRES(80) on the interleaved real embedding stalled from k=100 on in
+    # the scattering k-sweep)
+    tol = 3e-7
+    sigma, res, secs, launches = card.solve(prob.rhs, tol, restart=400,
+                                            max_iter=400)
+    gmres_row(rec, res, secs, launches, tol)
     print(f"card GMRES solve: {res.num_iter} iterations [{secs:.2f}s] "
           f"converged={res.converged}")
     rec["density_rel_vs_dense_lu"] = rel(sigma, prob.sigma_dense)

@@ -6,12 +6,11 @@ Helmholtz combined-field operator D - ikS on an ellipse (1, 0.7, rotated
 compiles it into the two-pass cell program (`partition_apply_plan`, kernel
 K2 on the card), checks the apply against a row-sampled dense oracle
 (`utils/oracle.py`: no dense operator exists at these sizes), and solves
-the second-kind BIE with `solve_gmres_plan` (a complex64 Krylov basis on
-the card over the plan's interleaved real embedding, which is torch's
+the second-kind BIE (I/2 + K W) sigma = f through the library's card system
+without a corrector (`models/bie.py` `CardBie`: a complex64 Krylov basis
+on the card over the plan's interleaved real embedding, which is torch's
 complex layout; one Hessenberg column to the host per iteration), so the
-solve takes about iterations x apply. `Helm2Scale.solve(basis="real")`
-runs the real basis on the embedding instead, as the JAX script's TPU
-drivers must.
+solve takes about iterations x apply.
 
 Usage:
   python -m butterfly_tpu_torch.examples.helm2_scale --sizes 16384
@@ -25,8 +24,8 @@ the plan's low-rank windows came from: "device_f64" or "host_chains"),
 `lr_classes` (each chunk's size class, members, rank, probe residual and
 its escalation steps) and `setup_plan_peak_mb` (the plan's peak device
 memory above what was allocated before it).
-Times are medians of CUDA-event timings on the card; where the plan lies
-on the CPU, they are None (not measured). `run_one` =
+Times are means of a batch of calls between two CUDA events on the card;
+where the plan lies on the CPU, they are None (not measured). `run_one` =
 `measure(setup(...))`; `chip_smoke.py` calls the two halves itself to
 check K2 on the plan in between.
 """
@@ -43,22 +42,14 @@ import numpy as np
 import torch
 
 from butterfly_tpu_torch.fac import helm2 as fac_helm2
-from butterfly_tpu_torch.fac.partition import (
-    PartitionPlan,
-    partition_apply_plan,
-)
+from butterfly_tpu_torch.fac.partition import partition_apply_plan
 from butterfly_tpu_torch.geom import Ellipse
-from butterfly_tpu_torch.ops.cellsp import K2
+from butterfly_tpu_torch.models.bie import CardBie
 from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
-from butterfly_tpu_torch.ops.linalg import solve_gmres_plan
 from butterfly_tpu_torch.trees import Quadtree
 from butterfly_tpu_torch.utils.device import resolve_device
-from butterfly_tpu_torch.utils.errors import InvalidArgumentsError, check
 from butterfly_tpu_torch.utils.oracle import row_oracle_rel_err
 from butterfly_tpu_torch.utils.timer import device_time
-
-# GMRES settings of the JAX script (examples/helm2_scale.py:156-157)
-GMRES_TOL, GMRES_RESTART, GMRES_MAX_ITER = 3e-7, 80, 300
 
 
 def log(*a):
@@ -68,59 +59,30 @@ def log(*a):
 @dataclasses.dataclass
 class Helm2Scale:
     """One size's problem: the operator's kernel, the points and normals
-    in tree order, the quadrature weights (interleaved, on the plan's
-    device), the compiled plan, and the row built so far."""
+    in tree order, the card system (the compiled plan, no corrector) and
+    the row built so far."""
 
     helm: Helm2
     k: float
     Xp: np.ndarray
     Np: np.ndarray
-    wp2: torch.Tensor
-    plan: PartitionPlan
+    card: CardBie
     rec: dict
 
-    def sys_apply(self, v: torch.Tensor) -> torch.Tensor:
-        """The BIE system (I/2 + K W) v in the interleaved real embedding,
-        W the quadrature weights."""
-        return 0.5 * v + self.plan.apply((v * self.wp2)[:, None])[:, 0]
-
-    def sys_apply_complex(self, z: torch.Tensor) -> torch.Tensor:
-        """The system on a complex64 (n,) vector, through `sys_apply` on
-        its interleaved real view."""
-        return torch.view_as_complex(
-            self.sys_apply(torch.view_as_real(z).reshape(-1)).reshape(-1, 2))
-
-    def rhs_complex(self) -> torch.Tensor:
-        """Single-layer field of an interior source at (0.1, -0.05), complex64
-        in tree order on the plan's device: the reference flagship's
-        right-hand side (examples/simple/helm2_bie.c:162-175)."""
+    def rhs_complex(self) -> np.ndarray:
+        """Single-layer field of an interior source at (0.1, -0.05),
+        complex128 in original order: the reference flagship's right-hand
+        side (examples/simple/helm2_bie.c:162-175)."""
         x_src = np.array([[0.1, -0.05]])
-        u = Helm2(k=self.k, layer_pot=LayerPot.SINGLE).kernel_matrix(
-            x_src, self.Xp)[:, 0]
-        return torch.from_numpy(u.astype(np.complex64)).to(self.plan.device)
+        helm_s = Helm2(k=self.k, layer_pot=LayerPot.SINGLE)
+        u = np.empty(len(self.Xp), np.complex128)
+        u[self.card.perm] = helm_s.kernel_matrix(x_src, self.Xp)[:, 0]
+        return u
 
     def rhs(self) -> torch.Tensor:
-        """The right-hand side interleaved (the real view of
-        `rhs_complex`)."""
-        return torch.view_as_real(self.rhs_complex()).reshape(-1)
-
-    def solve(self, basis: str = "complex"):
-        """GMRES (the JAX script's settings) on the card: a complex64 basis
-        on `sys_apply_complex`, or with `basis="real"` a float32 one on the
-        interleaved embedding. Returns (GMRES result, seconds, K2 launches
-        over the solve)."""
-        check(basis in ("complex", "real"), f"basis {basis!r}",
-              InvalidArgumentsError)
-        b, op = ((self.rhs_complex(), self.sys_apply_complex)
-                 if basis == "complex" else (self.rhs(), self.sys_apply))
-        dev = self.plan.device
-        launches = K2.launches
-        t0 = time.perf_counter()
-        res = solve_gmres_plan(op, b, tol=GMRES_TOL, restart=GMRES_RESTART,
-                               max_iter=GMRES_MAX_ITER)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return res, time.perf_counter() - t0, K2.launches - launches
+        """The right-hand side interleaved in tree order on the plan's
+        device (`CardBie.to_card`)."""
+        return self.card.to_card(self.rhs_complex())
 
 
 @dataclasses.dataclass
@@ -190,11 +152,10 @@ def compile_plan(fac: Helm2Fac, device=None) -> Helm2Scale:
     log(f"  plan: {rec['setup_plan_s']:.1f} s, {rec['weights_mb']:.1f} MB "
         f"({rec['compression_ratio']:.4f} of dense c128), low-rank windows "
         f"{plan.windows}, peak {rec['setup_plan_peak_mb']} MB")
-    tree = fac.tree
-    wp2 = torch.as_tensor(np.repeat(fac.w[tree.perm], 2),
-                          dtype=torch.float32, device=device)
-    return Helm2Scale(fac.helm, fac.k, fac.X[tree.perm], fac.Nrm[tree.perm],
-                      wp2, plan, rec)
+    perm = fac.tree.perm
+    # the card system's record is the row
+    card = CardBie(plan, None, perm, fac.A, fac.w, rec)
+    return Helm2Scale(fac.helm, fac.k, fac.X[perm], fac.Nrm[perm], card, rec)
 
 
 def setup(n: int, ppw: float, leaf: int, device=None) -> Helm2Scale:
@@ -207,7 +168,7 @@ def setup(n: int, ppw: float, leaf: int, device=None) -> Helm2Scale:
 def measure(prob: Helm2Scale, queries: int = 64) -> dict:
     """Time the apply (on the card), check it against the 128-row oracle
     and solve the BIE; returns the finished row."""
-    plan, rec, n = prob.plan, prob.rec, prob.plan.shape[0]
+    plan, rec, n = prob.card.plan, prob.rec, prob.card.plan.shape[0]
     dev = plan.device
     on_card = dev.type == "cuda"
 
@@ -236,7 +197,9 @@ def measure(prob: Helm2Scale, queries: int = 64) -> dict:
     log(f"  rel err vs dense (128-row oracle): {rel:.3e}")
 
     # ---- GMRES on the second-kind BIE (complex basis) -------------------
-    res, rec["gmres_s"], rec["gmres_k2_launches"] = prob.solve()
+    # the JAX script's settings (examples/helm2_scale.py:156-157)
+    _, res, rec["gmres_s"], rec["gmres_k2_launches"] = prob.card.solve(
+        prob.rhs_complex(), tol=3e-7, restart=80, max_iter=300)
     rec["gmres_iters"] = int(res.num_iter)
     rec["gmres_ms_per_iter"] = 1e3 * rec["gmres_s"] / max(res.num_iter, 1)
     rec["gmres_rel_res"] = res.residuals[-1]

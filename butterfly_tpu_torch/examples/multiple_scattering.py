@@ -9,10 +9,11 @@ system with per-boundary Kapur-Rokhlin corrections (order 6, periodic
 wraparound per boundary), host GMRES and the field error at four exterior
 targets against the exact solution of one interior source per scatterer.
 
-Then the same system is solved on the card as in `helm2_bie`: the S'
-operator through `partition_apply_plan` (kernel K2), the block accumulate
-corrector on the card, `solve_gmres_plan` (tol 3e-7, max_iter 400, no
-restarts, as the host GMRES runs).
+Then the same system is solved on the card as in `helm2_bie`, through
+the library's card system (`models/bie.py`): the S' operator through
+`partition_apply_plan` (kernel K2), the block accumulate corrector on the
+card, GMRES in a complex64 basis (tol 3e-7, max_iter 400, no restarts, as
+the host GMRES runs).
 The card system's MVP is checked against the dense float64 system (kernel
 matrix plus the materialized correction) in tree order, and its density
 against that system's LU solve. It prints the JAX script's lines, its
@@ -41,15 +42,15 @@ import time
 import numpy as np
 import torch
 
-from butterfly_tpu_torch.examples.helm2_bie import (
+from butterfly_tpu_torch.fac import helm2 as fac_helm2
+from butterfly_tpu_torch.geom import Ellipse, sample_poisson_disk
+from butterfly_tpu_torch.models.bie import (
     CardBie,
     card_system,
     card_timings,
     gmres_row,
     rel,
 )
-from butterfly_tpu_torch.fac import helm2 as fac_helm2
-from butterfly_tpu_torch.geom import Ellipse, sample_poisson_disk
 from butterfly_tpu_torch.ops.helm2 import Helm2, LayerPot
 from butterfly_tpu_torch.ops.linalg import solve_gmres
 from butterfly_tpu_torch.ops.linop import Diag, Identity, Product, Scaled, Sum
@@ -214,8 +215,11 @@ def solve(sc: Scattering) -> dict:
     card_timings(card, rec)
     rec.update(card.residual_floor(sigma_dense, hs.rhs))
 
-    sigma, res, t_solve, launches = card.solve(hs.rhs)
-    gmres_row(rec, res, t_solve, launches)
+    # helm2_bie's settings: tol 3e-7, max_iter 400, no restarts
+    tol = 3e-7
+    sigma, res, t_solve, launches = card.solve(hs.rhs, tol, restart=400,
+                                               max_iter=400)
+    gmres_row(rec, res, t_solve, launches, tol)
     rec["density_rel_vs_dense_lu"] = rel(sigma, sigma_dense)
     print(f"card GMRES: {res.num_iter} iterations, "
           f"converged={res.converged} [{t_solve:.2f}s]")

@@ -204,7 +204,7 @@ def run_size(n: int, cls: int, device, ppw: float = 64.0,
 
     # (3) the plan, measured
     prob = helm2_scale.compile_plan(fac, device)
-    got = prob.plan.apply_complex(zs)
+    got = prob.card.plan.apply_complex(zs)
     rec = helm2_scale.measure(prob)
     rec["plan_rel_err_vs_fac"] = _rel(got, Az)
     row["plan"] = {key: rec[key] for key in (
@@ -219,7 +219,7 @@ def run_size(n: int, cls: int, device, ppw: float = 64.0,
           f"oversized blocks", flush=True)
 
     # (4) the oversized blocks
-    row["oversized"] = ov = oversized_blocks(prob.plan, fac.A, zs, Az)
+    row["oversized"] = ov = oversized_blocks(prob.card.plan, fac.A, zs, Az)
     over = [m for m in ov["blocks"] if m["err_f32"] > 1e-6]
     print(f"  oversized blocks above 1e-6 in float32: {over}", flush=True)
     print(f"  float32 error / (eps32 growth) min, median, max: "

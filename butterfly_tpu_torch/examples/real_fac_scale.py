@@ -6,11 +6,11 @@ Twin of the JAX package's `examples/real_fac_scale.py` (the run behind
 `REAL_FAC_r05.json`): the same matrix, the same `FacSpec` (uniform trees,
 tol 1e-7, at least 8 rows and columns a block) and the same
 `uniformize_fused(tol=1e-7, float32)`. What differs: the apply is timed as
-the median of CUDA-event timings on the card (the JAX script's
-dispatch-chained slope is a TPU host-link workaround), and its TFLOP/s is
-set against the card's own float32 peak outside the tensor cores,
-67 TFLOP/s for an H100 SXM, not read from `BENCH_CONSTANTS.json` (a TPU
-figure).
+the mean of a batch of calls between CUDA events on the card (the JAX
+script's dispatch-chained slope is a TPU host-link workaround), and its
+TFLOP/s is set against the card's own float32 peak outside the tensor
+cores, 67 TFLOP/s for an H100 SXM, not read from `BENCH_CONSTANTS.json`
+(a TPU figure).
 
 Usage:
   python -m butterfly_tpu_torch.examples.real_fac_scale [--n 16384]

@@ -15,9 +15,10 @@ Usage:
   python -m butterfly_tpu_torch.examples.retrieval --n 1048576 --d 128
   python -m butterfly_tpu_torch.examples.retrieval --deep --n 8192
 
-Each run prints one JSON row with the JAX script's keys. Times are medians
-of CUDA-event timings of the scoring + top-100 on the card; where the run
-lies on the CPU (`--device cpu`), they are None (not measured).
+Each run prints one JSON row with the JAX script's keys. Times are means
+of a batch of scoring + top-100 calls between CUDA events on the card;
+where the run lies on the CPU (`--device cpu`), they are None (not
+measured).
 """
 
 from __future__ import annotations

@@ -42,8 +42,9 @@ Usage:
   python -m butterfly_tpu_torch.examples.retrieval_lbo --synthetic
   python -m butterfly_tpu_torch.examples.retrieval_lbo --config1m
 
-Prints one JSON list of rows. Times are medians of CUDA-event timings on
-the card; on the CPU (`--device cpu`) they are None (not measured).
+Prints one JSON list of rows. Times are means of a batch of calls between
+CUDA events on the card; on the CPU (`--device cpu`) they are None (not
+measured).
 """
 
 from __future__ import annotations

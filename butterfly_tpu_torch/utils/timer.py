@@ -2,8 +2,9 @@
 
 Port counterpart of `butterfly_tpu/utils/timer.py` (reference: the
 clock()-based timer, src/timer.c:3-11, and `bfToc()`, include/bf/util.h:10).
-`device_time` times work on the card with CUDA events recorded on the
-current stream, in place of the JAX package's `block_until_ready`.
+`device_time` times a batch of calls on the card between CUDA events
+recorded on the current stream, in place of the JAX package's
+`block_until_ready`.
 """
 
 from __future__ import annotations
@@ -42,25 +43,24 @@ class Timer:
 
 def device_time(fn: Callable[[], Any], *, warmup: int = 1,
                 iters: int = 10) -> float:
-    """Median seconds per call of `fn` on the card.
+    """Mean seconds per call of `fn` on the card.
 
-    Each call is bracketed by two CUDA events on the current stream, so the
-    time is the device's, not the host's enqueue time. Raises where there is
-    no card: a CPU time is never reported as a device time.
+    After `warmup` calls, `iters` calls run between one pair of CUDA events
+    on the current stream, so the time is the device's, not the host's
+    enqueue time, and a launch-bound call is not read as one launch's
+    latency. Raises where there is no card: a CPU time is never reported
+    as a device time.
     """
     check(torch.cuda.is_available(), "device_time needs a CUDA device",
           RuntimeButterflyError)
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    times = []
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-    times.sort()
-    return times[len(times) // 2]
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters

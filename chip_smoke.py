@@ -67,14 +67,13 @@ each printing its numbers on lines of their own:
      and its bound (weights bytes over the HBM rate, useful flops over
      the float32 peak); then the twin's `measure`: its apply timings, the
      128-row oracle (held to 1e-6, and below the 7.987e-7 that float32
-     windows read on the H100) and `solve_gmres_plan` on the second-kind
-     BIE in a complex64 basis (held to converge within the 18 iterations
-     of float32 windows), with iterations, seconds, ms per iteration and
-     K2 launches over the solve, beside the TPU record
-     `HELM2_SCALE_r05.json`; then, not counted, the real basis on the
-     interleaved embedding and the complex basis once more, each with
-     the same figures; every low-rank class, factored in float64, held to
-     the probe tolerance 3e-7;
+     windows read on the H100) and GMRES on the second-kind BIE through
+     the card system without a corrector (`models/bie.py` `CardBie`;
+     tol 3e-7, restart 80, max_iter 300) in a complex64 basis (held to
+     converge within the 18 iterations of float32 windows), with
+     iterations, seconds, ms per iteration and K2 launches over the
+     solve, beside the TPU record `HELM2_SCALE_r05.json`; every low-rank
+     class, factored in float64, held to the probe tolerance 3e-7;
   8. the fast direct solver's device substitution (`DeviceSolver`) on the
      operator-first Toeplitz system at n=4096
      (`butterfly_tpu_torch/examples/fast_direct_solver.py`): host float64
@@ -97,14 +96,15 @@ each printing its numbers on lines of their own:
      the `multiple_scattering` twin at k=25 with 3 scatterers of 512
      points (`butterfly_tpu_torch/examples/`). Each builds its host path
      (the dense system and LU, the host butterfly system and host GMRES)
-     and the card system: the S' operator through `partition_apply_plan`
-     and the Kapur-Rokhlin accumulate corrector on the card. K2 on the S'
+     and the card system (`models/bie.py` `card_system`): the S' operator
+     through `partition_apply_plan` and the Kapur-Rokhlin accumulate
+     corrector on the card. K2 on the S'
      plan is held to 1e-5 against `cells_plain` at r=1 and r=64 and timed
      beside the plain passes, the materialized operator's `D @ x` and the
      bound; then the card solve: the system's MVP held to 1e-6 against the
      dense float64 system in tree order, the density to 2e-5 against the
-     dense LU, `solve_gmres_plan` in a complex64 basis (tol 3e-7, no
-     restarts; at most 70 iterations for helm2_bie, whose host GMRES takes
+     dense LU, `CardBie.solve` in a complex64 basis (tol 3e-7, max_iter
+     400, no restarts; at most 70 iterations for helm2_bie, whose host GMRES takes
      63, and 1.1 x the host's for the scattering system) held to converge
      (its true residual under 10 x tol or, where the plan's float32 error
      alone keeps the residual above that even at the dense-LU density,
@@ -113,10 +113,8 @@ each printing its numbers on lines of their own:
      4.4e-7 in a CPU run) and
      the field to 1e-5 (helm2_bie) and 1e-4 (multiple_scattering) against
      the exact solution; its iterations beside host GMRES's and K2
-     launches over the solve; then, not counted, the real basis on the
-     interleaved embedding with its iterations, ms per iteration and K2
-     launches, and the system's deviation from complex-linearity
-     ||S(iz) - iS(z)|| / ||S(z)|| beside its MVP error;
+     launches over the solve; then the system's deviation from
+     complex-linearity ||S(iz) - iS(z)|| / ||S(z)|| beside its MVP error;
  11. the rest of the fac -> device bridge: `distill_butterfly_device` of a
      1024 x 512 DCT matrix (NB=16, rank 64) on the card, held to 1e-5
      against dense in float64, and `distill_butterfly_batch` of a
@@ -187,7 +185,8 @@ through K2, phase 9 through K1, phase 10 through K2, phases 11 and 12
 through K1, phase 14 (a) through K1 in each rank; phases 8 and 13 must
 launch neither) runs with the launch counts set to 0 just before and read
 just after; a rank counts its own launches and reports them.
-Times are medians of CUDA-event timings after warm-up. The last lines are
+Times are means of a batch of calls between two CUDA events after
+warm-up (`utils/timer.py` `device_time`). The last lines are
 one JSON object describing the kernels, the `nvidia-smi` line, and the
 result object. Any failed check exits non-zero; nothing is caught and
 carried on.
@@ -422,13 +421,13 @@ def bie_phase(dev, timer):
     from butterfly_tpu_torch.ops.fused_butterfly import K1
 
     cases, launches = {}, 0
-    for label, setup, solve, rhs_of, field_tol, max_iters in (
+    for label, setup, solve, field_tol, max_iters in (
             ("helm2_bie n=2048 k=40",
              lambda: helm2_bie.setup(2048, 40.0, device=dev),
-             helm2_bie.solve, lambda p: p.rhs, 1e-5, lambda rec: 70),
+             helm2_bie.solve, 1e-5, lambda rec: 70),
             ("multiple_scattering k=25 3x512",
              lambda: multiple_scattering.setup(25.0, 3, 512, device=dev),
-             multiple_scattering.solve, lambda p: p.hs.rhs, 1e-4,
+             multiple_scattering.solve, 1e-4,
              lambda rec: 1.1 * rec["host_gmres_iters"])):
         prob = setup()
         plan = prob.card.plan
@@ -464,9 +463,9 @@ def bie_phase(dev, timer):
         require(rec["density_rel_vs_dense_lu"] <= 2e-5,
                 f"{label}: density vs dense LU "
                 f"{rec['density_rel_vs_dense_lu']:.3e}")
-        tol10 = 10 * helm2_bie.GMRES_TOL
+        tol10 = 10 * rec["gmres_tol"]
         require(rec["gmres_converged"] or (
-            rec["gmres_givens_res"] < helm2_bie.GMRES_TOL
+            rec["gmres_givens_res"] < rec["gmres_tol"]
             and rec["f32_residual_floor"] > tol10
             and rec["floor_from_corrector"] < tol10),
             f"{label}: GMRES did not converge: {rec['gmres_iters']} "
@@ -486,17 +485,6 @@ def bie_phase(dev, timer):
                 f"{label}: complex GMRES took {rec['gmres_iters']} "
                 f"iterations, more than {max_iters(rec):.1f} (host "
                 f"{rec['host_gmres_iters']})")
-        # beside it, not counted: the real basis on the interleaved
-        # embedding, the same system and settings
-        _, res_r, secs_r, launches_r = prob.card.solve(
-            rhs_of(prob), basis="real")
-        rec.update(
-            real_gmres_iters=int(res_r.num_iter), real_gmres_s=secs_r,
-            real_ms_per_iter=1e3 * secs_r / max(res_r.num_iter, 1),
-            real_gmres_rel_res=res_r.residuals[-1],
-            real_gmres_givens_res=res_r.residuals[-2],
-            real_k2_launches=launches_r,
-            real_gmres_converged=bool(res_r.converged))
         # the plan applies the real embedding: its deviation from
         # complex-linearity, ||S(iz) - iS(z)|| / ||S(z)||, beside the MVP
         # error (the CPU tests hold it within twice that)
@@ -509,18 +497,14 @@ def bie_phase(dev, timer):
                                      - 1j * Sz)
             / torch.linalg.vector_norm(Sz))
         print(f"[10 bie] {label}: GMRES on the card {rec['gmres_iters']} "
-              "iterations (tol 3e-7, no restarts, complex64 basis; true "
-              f"residual {rec['gmres_rel_res']:.3e}, float32 floor "
-              f"{rec['f32_residual_floor']:.3e}: plan "
+              f"iterations (tol {rec['gmres_tol']:g}, no restarts, complex64 "
+              f"basis; true residual {rec['gmres_rel_res']:.3e}, float32 "
+              f"floor {rec['f32_residual_floor']:.3e}: plan "
               f"{rec['floor_from_plan']:.3e}, corrector "
               f"{rec['floor_from_corrector']:.3e}), {rec['ms_per_iter']:.3f} "
               f"ms an iteration, K2 {rec['k2_launches']} launches in GMRES "
               f"(by engine over the whole solve call: "
-              f"{rec['k2_launches_by_engine']}); on the "
-              f"interleaved real embedding {rec['real_gmres_iters']} "
-              f"iterations (true residual {rec['real_gmres_rel_res']:.3e}), "
-              f"{rec['real_ms_per_iter']:.3f} ms an iteration, K2 "
-              f"{rec['real_k2_launches']} launches; complex-linearity "
+              f"{rec['k2_launches_by_engine']}); complex-linearity "
               f"{rec['complex_linearity']:.3e} (MVP {rec['mvp_rel']:.3e}); "
               "on the host "
               f"{rec['host_gmres_iters']} (tol 1e-10, complex float64); "
@@ -1707,7 +1691,7 @@ def main() -> int:
     # ---- 7. the Helmholtz BIE solve at n=16384 (the scale twin) ---------
     nS, rS = 16384, 64
     prob = helm2_scale.setup(nS, 64.0, 64, device=dev)
-    ps = prob.plan
+    ps = prob.card.plan
     print(f"[7 helm2 scale] n={nS} k={prob.rec['k']}: host fac "
           f"{prob.rec['setup_fac_s']:.2f} s, plan {prob.rec['setup_plan_s']:.2f}"
           f" s, low-rank windows {ps.windows}, weights "
@@ -1760,13 +1744,13 @@ def main() -> int:
         print(f"[7 helm2 scale] K2 r={r}: " + json.dumps(scale[r]),
               flush=True)
     # the same BIE solved through other applies of the same plan (not
-    # counted), on the interleaved real embedding: the plain passes, the
-    # materialized operator in float32, and that operator in float64 with a
-    # float64 Krylov basis. Iterations that differ from the real-basis K2
-    # solve's (below) come from float32 rounding, not from the compressed
-    # operator.
+    # counted), on the interleaved real embedding with a real Krylov basis
+    # and the twin's GMRES settings: the plain passes, the materialized
+    # operator in float32, and that operator in float64 with a float64
+    # basis. Iterations that differ among them come from float32 rounding,
+    # not from the compressed operator.
     b2 = prob.rhs()
-    wp2 = prob.wp2
+    wp2 = prob.card.wp2
     D64 = D.double()
     wp64 = wp2.double()
     diag = {}
@@ -1776,9 +1760,7 @@ def main() -> int:
             ("dense f32", lambda v: 0.5 * v + D @ (v * wp2), b2),
             ("dense f64", lambda v: 0.5 * v + D64 @ (v * wp64),
              b2.double())):
-        res = solve_gmres_plan(fn, b, tol=helm2_scale.GMRES_TOL,
-                               restart=helm2_scale.GMRES_RESTART,
-                               max_iter=helm2_scale.GMRES_MAX_ITER)
+        res = solve_gmres_plan(fn, b, tol=3e-7, restart=80, max_iter=300)
         diag[what] = dict(iters=res.num_iter, converged=res.converged,
                           residuals=res.residuals)
         print(f"[7 helm2 scale] GMRES through the {what}: {res.num_iter} "
@@ -1809,36 +1791,11 @@ def main() -> int:
             f"GMRES launched K2 {row['gmres_k2_launches']} times in "
             f"{row['gmres_iters']} iterations")
     print("[7 helm2 scale] row: " + json.dumps(row), flush=True)
-    print("[7 helm2 scale] GMRES through K2 (complex64 basis): residuals "
-          + " ".join(f"{x:.2e}" for x in row["gmres_residuals"]), flush=True)
-    # beside it, not counted: the real basis on the interleaved embedding
-    res_r, secs_r, launches_r = prob.solve(basis="real")
-    require(res_r.converged, f"scale twin, real basis: {res_r.num_iter} "
-            f"iterations, rel res {res_r.residuals[-1]:.3e}")
-    real_S = dict(gmres_iters=int(res_r.num_iter), gmres_s=secs_r,
-                  gmres_ms_per_iter=1e3 * secs_r / max(res_r.num_iter, 1),
-                  gmres_rel_res=res_r.residuals[-1],
-                  gmres_k2_launches=launches_r)
-    row["real_basis"] = real_S
-    # the complex solve once more, after both bases have run once: the
-    # main path's solve is the process's first complex GMRES
-    res_c, secs_c, launches_c = prob.solve()
-    row["complex_basis_again"] = dict(
-        gmres_iters=int(res_c.num_iter), gmres_s=secs_c,
-        gmres_ms_per_iter=1e3 * secs_c / max(res_c.num_iter, 1),
-        gmres_k2_launches=launches_c)
     print(f"[7 helm2 scale] GMRES through K2: complex64 basis "
           f"{row['gmres_iters']} iterations, "
           f"{row['gmres_ms_per_iter']:.3f} ms an iteration, K2 "
-          f"{row['gmres_k2_launches']} launches, true residual "
-          f"{row['gmres_rel_res']:.3e}; real basis on the interleaved "
-          f"embedding {real_S['gmres_iters']} iterations, "
-          f"{real_S['gmres_ms_per_iter']:.3f} ms an iteration, K2 "
-          f"{launches_r} launches, true residual "
-          f"{real_S['gmres_rel_res']:.3e}; the complex basis again "
-          f"{row['complex_basis_again']['gmres_ms_per_iter']:.3f} ms an "
-          "iteration; real residuals " + " ".join(
-              f"{x:.2e}" for x in res_r.residuals), flush=True)
+          f"{row['gmres_k2_launches']} launches, residuals " + " ".join(
+              f"{x:.2e}" for x in row["gmres_residuals"]), flush=True)
     tpu = next(t for t in json.loads(
         (ROOT / "HELM2_SCALE_r05.json").read_text()) if t.get("n") == nS)
     print(f"[7 helm2 scale] windows {row['windows']}, plan "

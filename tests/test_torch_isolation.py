@@ -51,6 +51,7 @@ SLICE_MODULES = [
     "butterfly_tpu_torch.io",
     "butterfly_tpu_torch.io.serialization",
     "butterfly_tpu_torch.models",
+    "butterfly_tpu_torch.models.bie",
     "butterfly_tpu_torch.models.covariance",
     "butterfly_tpu_torch.models.lbo",
     "butterfly_tpu_torch.models.radiosity",
@@ -163,6 +164,9 @@ assert raises(lambda: compress_table_deep(np.ones((256, 64))))
 assert raises(lambda: retrieval.main(["--n", "1024"]))
 assert raises(lambda: retrieval_lbo.main(["--synthetic"]))
 assert raises(lambda: helm2_bie.main(["--n", "512", "--k", "10"]))
+from butterfly_tpu_torch.models.bie import card_system
+assert raises(lambda: card_system(Dense(np.eye(4)), np.arange(4), np.ones(4),
+                                  None, 6))
 assert raises(lambda: multiple_scattering.main(["--per-boundary", "64"]))
 assert raises(lambda: real_fac_scale.main(["--n", "256", "--m", "64"]))
 assert raises(lambda: distill_butterfly_batch(np.ones((64, 64)), 4, 8))
