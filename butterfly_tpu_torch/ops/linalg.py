@@ -14,9 +14,10 @@ bfSolveGMRES, src/linalg.c:47-317):
 - `solve_gmres_plan`    the Krylov basis on the device, the Givens
                         recurrence on the host in float64 (complex128 for a
                         complex system); one Hessenberg column comes to the
-                        host per iteration. The operator may be any Python
-                        callable on device tensors, e.g. a
-                        `PartitionPlan.apply`: this is the large-N Helmholtz
+                        host per iteration; on a card, CGS2 and the
+                        column are one CUDA graph replay. The operator
+                        may be any Python callable on device tensors, e.g.
+                        a `PartitionPlan.apply`: this is the large-N Helmholtz
                         BIE solve (`examples/helm2_scale.py`). The JAX
                         drivers are real-only (its TPU backend has no
                         complex); this one takes a complex right-hand side
@@ -352,17 +353,115 @@ def solve_gmres_plan(
     `tol` below that runs to max_iter and reports the floor. `converged` is
     the true final residual under 10 * tol.
 
+    On a card, CGS2 and the packing of the Hessenberg column run as one
+    CUDA graph replay an iteration, over the power of two of the basis's
+    rows that holds the rows in use (the rows past them are zero). The
+    graphs are captured at a process's first solve of each (device, dtype,
+    n, restart); `apply_fn` stays eager. Solves of one such shape share
+    the graphs' buffers, so they run one at a time. On the CPU the same
+    step runs eagerly on the rows in use.
+
     With `utils.profiling.tracing` on, a solve is the span `gmres.solve`
     over `gmres.residual` (each true residual and its norm read), and per
     iteration `gmres.apply`, `gmres.orth` (CGS2), `gmres.read` (the
     Hessenberg column to the host) and `gmres.givens` (the rotations and
     the residual estimate), then `gmres.update` (back substitution and the
-    update of x) a cycle; it counts `gmres.iters`. On a card, the event
-    pairs `gmres.gap` time the card's idle from each CGS2's end to the
-    cycle's next apply.
+    update of x) a cycle; it counts `gmres.iters`, and on a card
+    `gmres.cgs2_replay` (the graphs' replays) and `gmres.cgs2_capture`
+    (their captures). On a card, the event pairs `gmres.gap` time the
+    card's idle from each CGS2's end to the cycle's next apply.
     """
     with profiling.span("gmres.solve", root=True):
         return _gmres_plan(apply_fn, b, tol, restart, max_iter, device)
+
+
+def _vh(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """V^H w as conj(V conj(w)): no conjugate copy of V."""
+    if V.is_complex():
+        return torch.mv(V, w.conj()).conj_physical()
+    return torch.mv(V, w)
+
+
+def _cgs2(V: torch.Tensor, w: torch.Tensor, hdtype: torch.dtype):
+    """Classical Gram-Schmidt of `w` against the rows of `V` with one
+    reorthogonalisation pass (CGS2). Returns (q, col): `q` the normalised
+    remainder (zero where the remainder is zero) and `col` = [beta, h],
+    beta its norm and h = V^H w over both passes, in `hdtype`.
+
+    Rows of `V` that are zero add exact zeros: on a basis whose rows past
+    j are zero, `q` and `col[: j + 2]` are those of `V[: j + 1]` up to the
+    order of the sums, and the rest of `col` is zero."""
+    h1 = _vh(V, w)
+    w = w - V.T @ h1
+    h2 = _vh(V, w)
+    w = w - V.T @ h2
+    beta = torch.linalg.vector_norm(w)
+    q = w / torch.where(beta > 0, beta, 1.0)
+    col = torch.empty(V.shape[0] + 1, dtype=hdtype, device=V.device)
+    col[0] = beta
+    torch.add(h1, h2, out=col[1:])
+    return q, col
+
+
+def _rows(j: int, m: int) -> int:
+    """The rows of the basis CGS2 runs over at iteration j on a card: the
+    power of two that holds V[0..j], at most m."""
+    return min(1 << j.bit_length(), m)
+
+
+class _CardStep:
+    """`_cgs2` as CUDA graphs on fixed buffers: `V` the basis (m + 1 rows,
+    zero past the rows in use) and `w` the vector to orthogonalise. One
+    graph for each bucket of rows `_rows(j, m)`: iteration j replays the
+    smallest that holds V[0..j], since a gemv over all m + 1 rows is slow
+    on the card (~73 us a replay at m = 400, n = 2048 on an H100, ~36 us at
+    32 rows). All are captured at once a process for each (device, dtype,
+    n, m) and shared by the solves of that shape, so one such solve runs
+    at a time. The graphs share one memory pool, and their warm-ups one
+    side stream (cuBLAS keeps a workspace for each stream): a replay's `q`
+    and `col` are read before the next replay on the same stream."""
+
+    def __init__(self, device, dtype, hdtype, n: int, m: int):
+        self.m = m
+        self.pool = torch.cuda.graph_pool_handle()
+        self.side = torch.cuda.Stream(device)
+        with torch.cuda.device(device), _f32_precision("highest"):
+            self.V = torch.zeros((m + 1, n), dtype=dtype, device=device)
+            self.w = torch.zeros(n, dtype=dtype, device=device)
+            self.graphs = {rows: self._capture(self.V[:rows], hdtype)
+                           for rows in sorted({_rows(j, m)
+                                               for j in range(m)})}
+
+    def _capture(self, V: torch.Tensor, hdtype: torch.dtype):
+        # warm-up on a side stream, as capture requires
+        self.side.wait_stream(torch.cuda.current_stream(V.device))
+        with torch.cuda.stream(self.side):
+            _cgs2(V, self.w, hdtype)
+        torch.cuda.current_stream(V.device).wait_stream(self.side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            q, col = _cgs2(V, self.w, hdtype)
+        profiling.count("gmres.cgs2_capture")
+        return graph, q, col
+
+    def replay(self, j: int):
+        """CGS2 of `w` against V[0..j]: returns (q, col) with col[: j + 2]
+        = [beta, h[0..j]]."""
+        graph, q, col = self.graphs[_rows(j, self.m)]
+        graph.replay()
+        profiling.count("gmres.cgs2_replay")
+        return q, col
+
+
+_card_steps: dict = {}
+
+
+def _card_step(device, dtype, hdtype, n: int, m: int) -> _CardStep:
+    key = (device, dtype, n, m)
+    step = _card_steps.get(key)
+    if step is None:
+        step = _card_steps[key] = _CardStep(device, dtype, hdtype, n, m)
+    return step
 
 
 def _gmres_plan(apply_fn, b, tol, restart, max_iter, device) -> GmresResult:
@@ -384,6 +483,9 @@ def _gmres_plan(apply_fn, b, tol, restart, max_iter, device) -> GmresResult:
     def resid(x):
         return b - apply_fn(x).reshape(n)
 
+    # on a card, CGS2 and the column are one graph replay an iteration
+    step = (_card_step(b.device, b.dtype, tdt, n, m)
+            if b.device.type == "cuda" else None)
     gaps = profiling.device_gaps("gmres.gap", b.device)
     residuals: list[float] = []
     total = 0
@@ -397,7 +499,10 @@ def _gmres_plan(apply_fn, b, tol, restart, max_iter, device) -> GmresResult:
             if rnorm / bnorm < tol:
                 converged = True
                 break
-            V = b.new_zeros((m + 1, n))
+            if step is None:
+                V = b.new_zeros((m + 1, n))
+            else:
+                V = step.V.zero_()
             V[0] = r / (rnorm if rnorm > 0 else 1.0)
             # host-side Givens recurrence state, float64 or complex128
             Hr = np.zeros((m + 1, m), hdt)
@@ -413,23 +518,21 @@ def _gmres_plan(apply_fn, b, tol, restart, max_iter, device) -> GmresResult:
                     if j:   # closes the pair the last CGS2 opened
                         gaps.stop()
                     w = apply_fn(V[j]).reshape(n)
+                    if step is not None:
+                        step.w.copy_(w)
                 with span("gmres.orth"):
-                    # CGS2 against V[0..j] (conj() is free on a real basis)
-                    Vj = V[: j + 1]
-                    h1 = Vj.conj() @ w
-                    w = w - Vj.T @ h1
-                    h2 = Vj.conj() @ w
-                    w = w - Vj.T @ h2
-                    beta = torch.linalg.vector_norm(w)
-                    V[j + 1] = w / torch.where(beta > 0, beta,
-                                               torch.ones_like(beta))
+                    if step is None:
+                        q, col = _cgs2(V[: j + 1], w, tdt)
+                    else:
+                        q, col = step.replay(j)
+                    V[j + 1] = q
                 gaps.start()
                 with span("gmres.read"):
-                    # the iteration's one fetch: h[0..j] and the new norm
+                    # the iteration's one fetch: the new norm and h[0..j]
+                    got = col[: j + 2].cpu().numpy()
                     hcol = np.zeros(m + 1, hdt)
-                    hcol[: j + 2] = torch.cat(
-                        [h1 + h2, beta[None].to(h1.dtype)]).to(
-                            "cpu", tdt).numpy()
+                    hcol[: j + 1] = got[1:]
+                    hcol[j + 1] = got[0]
                 with span("gmres.givens"):
                     for i in range(j):
                         t = cs[i] * hcol[i] + sn[i] * hcol[i + 1]

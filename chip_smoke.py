@@ -113,7 +113,9 @@ each printing its numbers on lines of their own:
      4.4e-7 in a CPU run) and
      the field to 1e-5 (helm2_bie) and 1e-4 (multiple_scattering) against
      the exact solution; its iterations beside host GMRES's and K2
-     launches over the solve; then the system's deviation from
+     launches over the solve, two in each apply; its CGS2 replays, one an
+     iteration (the program's counters, tracing on over the card half),
+     and its ms an iteration; then the system's deviation from
      complex-linearity ||S(iz) - iS(z)|| / ||S(z)|| beside its MVP error;
  11. the rest of the fac -> device bridge: `distill_butterfly_device` of a
      1024 x 512 DCT matrix (NB=16, rank 64) on the card, held to 1e-5
@@ -414,11 +416,12 @@ def bie_phase(dev, timer):
     and the card system (`setup`), K2 on its S' plan against the plain
     passes at r=1 and 64, then the card half (`solve`: the system's MVP
     against the dense float64 system, GMRES on the card) with the launch
-    counts set to 0 just before and read just after. Returns (cases, K2
-    launches of the solves)."""
+    counts set to 0 just before and read just after, and the program's
+    tracing on over it. Returns (cases, K2 launches of the solves)."""
     from butterfly_tpu_torch.examples import helm2_bie, multiple_scattering
     from butterfly_tpu_torch.ops.cellsp import K2
     from butterfly_tpu_torch.ops.fused_butterfly import K1
+    from butterfly_tpu_torch.utils import profiling
 
     cases, launches = {}, 0
     for label, setup, solve, field_tol, max_iters in (
@@ -438,8 +441,20 @@ def bie_phase(dev, timer):
             31), timer)
         K1.launches = 0
         K2.launches = K2.launches_mv = K2.launches_tile = 0
-        rec = solve(prob)
-        torch.cuda.synchronize()
+        # the program's counters and spans over the card half: one GMRES
+        # solve, its CGS2 a replayed graph an iteration
+        profiling.reset()
+        was = profiling.tracing(True)
+        try:
+            rec = solve(prob)
+            torch.cuda.synchronize()
+        finally:
+            profiling.tracing(was)
+        snap = profiling.snapshot()
+        profiling.reset()
+        calls = {k: v["calls"] for k, v in snap["spans"].items()}
+        rec["gmres_counters"] = snap["counters"]
+        applies = calls.get("gmres.apply", 0) + calls.get("gmres.residual", 0)
         require(K2.launches > 0 and K1.launches == 0,
                 f"{label}: the solve launched K2 {K2.launches} and K1 "
                 f"{K1.launches} times")
@@ -477,6 +492,23 @@ def bie_phase(dev, timer):
         require(rec["k2_launches"] >= 2 * rec["gmres_iters"],
                 f"{label}: GMRES launched K2 {rec['k2_launches']} times in "
                 f"{rec['gmres_iters']} iterations")
+        # the apply stays eager: K2's two passes in each of the solve's
+        # applies (its iterations' and its true residuals')
+        require(rec["k2_launches"] == 2 * applies,
+                f"{label}: GMRES launched K2 {rec['k2_launches']} times in "
+                f"{applies} applies")
+        counters = rec["gmres_counters"]
+        require(counters.get("gmres.iters") == rec["gmres_iters"]
+                and counters.get("gmres.cgs2_replay") == rec["gmres_iters"],
+                f"{label}: {counters.get('gmres.cgs2_replay')} CGS2 replays "
+                f"in {counters.get('gmres.iters')} GMRES iterations")
+        print(f"[10 bie] {label}: CGS2 replays "
+              f"{counters.get('gmres.cgs2_replay')} (captures "
+              f"{counters.get('gmres.cgs2_capture', 0)}) in "
+              f"{counters.get('gmres.iters')} iterations, "
+              f"{rec['ms_per_iter']:.3f} ms an iteration (tracing on, any "
+              f"capture included), K2 {rec['k2_launches']} launches in "
+              f"{applies} applies", flush=True)
         require(rec["field_rel_err"] <= field_tol,
                 f"{label}: field rel err {rec['field_rel_err']:.3e}")
         # the complex basis: about the host's complex iterations (helm2_bie

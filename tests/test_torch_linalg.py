@@ -214,6 +214,49 @@ def test_gmres_plan_complex_matches_numpy_solve(restart):
     assert got.residuals[-1] < 1e-12
 
 
+@pytest.mark.parametrize("dtype,rtol", [(torch.complex64, 1e-6),
+                                        (torch.complex128, 1e-12),
+                                        (torch.float64, 1e-12)])
+def test_cgs2_on_the_whole_basis_equals_the_rows_in_use(dtype, rtol):
+    """The step a card replays, CGS2 and the packed column over a basis
+    whose rows past j are zero (the bucket of rows the card replays at j,
+    and the whole basis), against the step on V[: j + 1] that the CPU
+    runs: h, beta, q and the column, at the first, a middle and the last
+    j; each also against w = V^T h + beta q, q orthogonal to V."""
+    m, n = 24, 64
+    rng = np.random.default_rng(5)
+    cplx = dtype.is_complex
+    hdtype = torch.complex128 if cplx else torch.float64
+
+    def draw(*shape):
+        z = rng.standard_normal(shape)
+        return z + 1j * rng.standard_normal(shape) if cplx else z
+
+    def close(got, want):
+        return float(torch.linalg.vector_norm(got - want)) <= rtol * float(
+            torch.linalg.vector_norm(want))
+
+    basis = np.linalg.qr(draw(n, m + 1))[0].T
+    for j in (0, m // 2, m - 1):
+        V = torch.zeros((m + 1, n), dtype=dtype)
+        V[: j + 1] = torch.as_tensor(basis[: j + 1], dtype=dtype)
+        w = torch.as_tensor(draw(n), dtype=dtype)
+        q, col = P._cgs2(V[: j + 1], w, hdtype)
+        assert col.shape == (j + 2,) and col.dtype == hdtype
+        for rows in (P._rows(j, m), m + 1):
+            q_all, col_all = P._cgs2(V[:rows], w, hdtype)
+            assert rows >= j + 1 and col_all.shape == (rows + 1,)
+            assert col_all.dtype == hdtype
+            assert torch.count_nonzero(col_all[j + 2:]) == 0
+            assert close(col_all[: j + 2], col)
+            assert close(col_all[1: j + 2], col[1:])                 # h
+            assert abs(col_all[0] - col[0]) <= rtol * abs(col[0])    # beta
+            assert close(q_all, q)
+        h = col[1:].to(dtype)
+        assert close(V[: j + 1].T @ h + col[0].real.to(dtype) * q, w)
+        assert float(torch.linalg.vector_norm(V.conj() @ q)) <= rtol
+
+
 def test_bie_gmres_plan_complex_against_jax_host(bie):
     """The combined-field BIE in complex64 through the port's plan (its
     interleaved real apply viewed as complex) against the JAX package's

@@ -152,6 +152,8 @@ def test_plan_and_corrector_applies_are_recorded(bie):
     # and the two true residuals'
     applies = res.num_iter + 2
     assert res.converged
+    # no CUDA graph off the card: no replay or capture is counted
+    assert snap["counters"] == {"gmres.iters": res.num_iter}
     assert snap["spans"]["plan.apply"]["calls"] == applies
     assert snap["spans"]["kr.apply"]["calls"] == applies
     for r in recs:
